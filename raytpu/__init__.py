@@ -1,13 +1,13 @@
-"""raytpu — TPU-native differentiable Monte-Carlo path tracer.
+"""raytpu — differentiable Monte-Carlo path tracer in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the full capability set of the
 reference C/CUDA raytracer (xelema/tipe-raytracer): sphere and textured
 triangle-mesh scenes (OBJ/MTL with PPM textures and alpha cutout maps),
 depth of field, ambient occlusion, probabilistic refraction with a per-ray
 IOR stack, sky-sphere environment mapping, and an albedo/normal-guided
-denoise pass — designed TPU-first (SoA component arrays, fixed-depth
-``lax.scan`` light transport, mesh-sharded pixels/samples with ``psum``
-reduction) and differentiable end-to-end.
+denoise pass — built from SoA component arrays, fixed-depth
+``lax.scan`` light transport and mesh-sharded pixels/samples with
+``psum`` reduction, and differentiable end-to-end.
 
 Layout (see SURVEY.md §7):
   core/        scene pytrees, Vec3 SoA math, RNG, color utilities
@@ -16,7 +16,7 @@ Layout (see SURVEY.md §7):
   integrator/  fixed-depth bounce loop, AO, AOVs, sample accumulation
   camera.py    look-at camera with DoF aperture jitter
   sharding/    device-mesh (tiles, samples) rendering with psum
-  kernels/     Pallas TPU megakernels for the intersection inner loop
+  kernels/     Triton (Pallas) megakernel for the sphere bounce loop
   denoise/     differentiable joint-bilateral denoiser (OIDN replacement)
   io/          OBJ/MTL/PPM loaders and writers (+ native C++ fast path)
   train/       inverse-rendering optimization loop

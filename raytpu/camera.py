@@ -18,13 +18,13 @@ optimized by the inverse renderer.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 from jax import Array
 
+from raytpu.core.types import pytree_dataclass
 from raytpu.core.vec3 import Vec3
 
 
-@struct.dataclass
+@pytree_dataclass
 class Camera:
     origin: Vec3        # scalar Vec3
     horizontal: Vec3

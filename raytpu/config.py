@@ -300,31 +300,6 @@ def load_scene_file(path: str) -> tuple[Scene, Camera, RenderConfig]:
                 "convention; required for the megakernel fast path)"
             )
 
-    # the spec's top-level merge_quads key lands on the config so both
-    # the detection below AND the kernel dispatch gate on the SAME
-    # resolved flag (cfg.replace(merge_quads=False) after load also
-    # disables the path — ADVICE r3 low #4)
-    cfg = cfg.replace(merge_quads=bool(spec.get("merge_quads", True)))
-    if triangles.count > 1 and cfg.merge_quads:
-        # coplanar-pair detection for the megakernel's rectangle fast
-        # path (geometry/quads.py) — static per-scene data, so it lives
-        # on the (hashable) RenderConfig, not the traced Scene pytree
-        from raytpu.geometry.quads import (
-            classify_axis_aligned,
-            detect_quad_pairs,
-        )
-
-        coords = (
-            triangles.a.x, triangles.a.y, triangles.a.z,
-            triangles.b.x, triangles.b.y, triangles.b.z,
-            triangles.c.x, triangles.c.y, triangles.c.z,
-        )
-        pairs = detect_quad_pairs(*coords)
-        aa_rects, aa_tris = classify_axis_aligned(*coords, pairs)
-        cfg = cfg.replace(
-            quad_pairs=pairs, quad_aa_rects=aa_rects, quad_aa_tris=aa_tris
-        )
-
     scene = Scene(
         spheres=spheres,
         triangles=triangles,

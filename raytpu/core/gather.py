@@ -1,32 +1,20 @@
-"""TPU-fast gathers.
+"""Gathers with hand-written layouts and pullbacks.
 
-Empirical Mosaic/XLA-TPU behavior (measured on v5e, jax 0.9, in-jit
-loops so dispatch latency doesn't pollute the numbers, B=122880):
+Every gather is routed to one of three layouts:
 
-  | formulation                     | compile   | warm runtime        |
-  |---------------------------------|-----------|---------------------|
-  | take from (N<=64,)              | ~1s       | 0.3ms (select tree) |
-  | take from (N,) 1-D, N large     | 1-6 MIN   | ~1ms                |
-  | 2-D t[i//128, i%128]            | ~1s       | ~20ms (scalar path) |
-  | row-gather take((N,4), axis=0)  | 344s      | 3.3ms               |
-  | row-gather take((N,32), axis=0) | 124s      | 3.3ms               |
-  | row-gather take((N,128),axis=0) | **1.4s**  | **3.4ms for ALL 128 cols** |
-
-The ONLY formulation that both compiles fast and runs fast is a
-row-gather whose gathered rows are exactly 128 lanes wide. Every gather
-here is therefore routed to one of three layouts:
-
-  1. N <= 64: plain take (fast select-tree path).
+  1. N <= 64: plain take.
   2. N <= ROW_LIMIT: channel-lane layout — stack up to 128 channels as
      the lanes of an (N, 128) table, ONE row-gather fetches every
      channel, extraction is a free static slice.
   3. N > ROW_LIMIT (large textures): interleaved layout — pack
      ceil128(C) channels x (128 / ceil128(C)) entries per row; one
-     row-gather + a one-hot lane extraction per channel (a handful of
-     cheap vector ops). Memory stays ~C/ceil128(C) of layout 1.
+     row-gather + a one-hot lane extraction per channel. Memory stays
+     ~C/ceil128(C) of layout 1.
 
-All paths are plain take/where/multiply/sum — differentiable w.r.t. the
-table values and fast-compiling.
+The pullbacks avoid scatters: masked reductions for small tables, a
+one-hot matmul or a sort-based segment sum for row tables. All paths are
+differentiable w.r.t. the table values. Whether plain ``jnp.take`` and
+its scatter-add transpose are as fast on the GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -39,7 +27,7 @@ import jax.numpy as jnp
 from jax import Array
 
 LANE = 128
-SMALL = 64          # <= this: XLA's select-tree take is fastest
+SMALL = 64          # <= this: plain per-channel take
 ROW_LIMIT = 65536   # channel-lane layout memory cap: 65536*128*4B = 32MB
 _BWD_CHUNK = 32768  # rows per one-hot matmul chunk in the gather VJP
 _SORT_BWD_ROWS = 8192   # rows below this always take the exact one-hot
@@ -49,15 +37,15 @@ _SEG_CHUNK = 1024   # sorted rows per local-prefix chunk in the sort-path
                     # prefixes only (ADVICE r4 precision fix)
 _MATMUL_BWD_MACS = 2**31  # above _SORT_BWD_ROWS the matmul is still
                         # preferred (exactness) while B*N stays under
-                        # this MAC budget (~20ms of MXU); past it the
+                        # this MAC budget; past it the
                         # sort + prefix-sum path takes over — see
                         # _take_rows_bwd
 
 
 # ---------------------------------------------------------------------------
-# custom-VJP gathers: XLA's native take-transpose is a serial TPU scatter
-# (~12x a forward render in practice); these backpropagate through an
-# explicit one-hot matmul on the MXU / masked reductions instead.
+# custom-VJP gathers: these backpropagate through an explicit one-hot
+# matmul / masked reductions / a sorted segment sum instead of the
+# take-transpose scatter.
 # ---------------------------------------------------------------------------
 @functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
 def _take_small_n(n: int, tbl: Array, idx: Array) -> Array:
@@ -97,10 +85,9 @@ def _take_rows_bwd(n, idx, g):
     b = idx.shape[0]
     if n > _SORT_BWD_ROWS and n * b > _MATMUL_BWD_MACS:
         # one-hot matmul work is O(B * N * 128) MACs — fine for atlas-
-        # sized tables, catastrophic for equirect-sky-sized ones (the
+        # sized tables, infeasible for equirect-sky-sized ones (the
         # 4096x2048 sky = 262144 interleaved rows: ~2.5e16 MACs per
-        # pullback; in round 4 it took the TPU worker down on the
-        # mesh+sky fwd+bwd bench). Sort-based segment sums are
+        # pullback). Sort-based segment sums are
         # O((B + N) * 128): sort cotangent rows by destination, prefix-
         # sum, and difference at each row's [first, last) occurrence
         # range via two searchsorteds. The combined threshold keeps the
@@ -144,9 +131,6 @@ def _take_rows_bwd(n, idx, g):
             [jnp.zeros((1, LANE), jnp.float32), jnp.cumsum(tot, axis=0)]
         )
         tot = jnp.concatenate([tot, jnp.zeros((1, LANE), jnp.float32)])
-        # method='sort' (concatenate + sort) over the default binary-
-        # search 'scan': measured 57.6 vs 108.7 ms for 262K targets in
-        # 750K sorted keys on v5e — TPU sorts beat TPU dynamic gathers
         targets = jnp.arange(n, dtype=si.dtype)
         lo = jnp.searchsorted(si, targets, side="left", method="sort")
         hi = jnp.searchsorted(si, targets, side="right", method="sort")
@@ -172,7 +156,9 @@ def _take_rows_bwd(n, idx, g):
     def chunk(acc, xs):
         ic, gc = xs
         oh = jax.nn.one_hot(ic, n, dtype=jnp.float32)       # (CH, N)
-        return acc + oh.T @ gc, None                         # MXU (N, 128)
+        # full f32: a TF32 product would round the cotangents to ~3 digits
+        part = jnp.matmul(oh.T, gc, precision=jax.lax.Precision.HIGHEST)
+        return acc + part, None                              # (N, 128)
 
     grad, _ = jax.lax.scan(
         chunk, jnp.zeros((n, LANE), jnp.float32), (idx_p, g_p)
@@ -219,12 +205,7 @@ def gather_channels(tables: Sequence[Array], idx: Array) -> list[Array]:
     if n == 0:
         raise ValueError("gather from empty table")
     if n <= SMALL:
-        # XLA's select-tree take path. NOTE (measured, round 2): routing
-        # wide small-table lookups through one (N,128) row-gather looks
-        # 10ns/ray FASTER in an isolated closest_hit microbenchmark but
-        # is 15ns/ray SLOWER inside the real bounce/sample scans
-        # (mcworld end-to-end 36 -> 51 ns/ray) — tiny-N row-gathers
-        # defeat XLA's in-loop pipelining. Keep per-channel takes.
+        # per-channel takes
         return [
             _take_small(t, idx)
             if jnp.issubdtype(t.dtype, jnp.floating)
@@ -282,14 +263,10 @@ def _take_packed_n(
     the forward never touches the f32 channels — one uint32 row-gather
     + integer lane-select + byte unpack + a correctly-rounded
     ``n * f32(1/255)`` reconstructs them bit-exactly at a quarter of
-    the f32 layout's bytes. That keeps very large atlases (pyramide_eau:
-    9.2M texels = 147MB as f32, 37MB packed) inside the fast gather
-    regime: measured on v5e, the f32 layout-3 path runs 344 ns/ray on
-    that scene vs 14 with a VMEM-sized table.
+    the f32 layout's bytes (pyramide_eau: 9.2M texels = 147MB as f32,
+    37MB packed).
 
-    Differentiable w.r.t. the f32 channels (scatter-add backward; slow
-    serial TPU scatter, acceptable because big-atlas texture training is
-    off the hot path).
+    Differentiable w.r.t. the f32 channels (scatter-add backward).
     """
     del r, g, b, a
     rows = jnp.take(packed, idx // LANE, axis=0)          # (B, 128)
@@ -366,8 +343,8 @@ def pack_rgba_u8_traced(
 
 
 def gather1d(table: Array, idx: Array) -> Array:
-    """table (N,), idx (...,) int -> table[idx]; TPU-fast in compile AND
-    runtime. Prefer gather_channels when several tables share the index."""
+    """table (N,), idx (...,) int -> table[idx]. Prefer gather_channels
+    when several tables share the index."""
     if table.ndim != 1:
         return jnp.take(table, idx, axis=0)
     return gather_channels([table], idx)[0]

@@ -20,15 +20,28 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import Array
 
 from raytpu.core.vec3 import Vec3
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a pytree, with ``replace(**kw)``.
+    Fields declared with :func:`static_field` are treedef metadata
+    (hashable, part of the jit cache key); all others are leaves."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    return jax.tree_util.register_dataclass(cls)
+
+
+def static_field(default):
+    return dataclasses.field(default=default, metadata={"static": True})
+
+
+@pytree_dataclass
 class Materials:
     """Material SoA; fields mirror struct Material
     (/root/reference/hitinfo.h:6-13)."""
@@ -88,7 +101,7 @@ def _as_vec(v) -> Vec3:
     return Vec3.from_array(a)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Spheres:
     """Sphere SoA (struct Sphere, /root/reference/sphere.h:7-11)."""
 
@@ -105,7 +118,7 @@ class Spheres:
         return Spheres(Vec3.zeros((0,)), jnp.zeros((0,)), Materials.zeros((0,)))
 
 
-@struct.dataclass
+@pytree_dataclass
 class Triangles:
     """Triangle SoA (struct Triangle, /root/reference/mesh.h:14-22):
     vertices A/B/C, per-vertex UVs, per-triangle material-id into the
@@ -135,7 +148,7 @@ class Triangles:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class TextureAtlas:
     """All mesh textures concatenated (texture.h:175-354): flat per-channel
     arrays of length M*H*W indexed by mat_id*H*W + y*W + x. All textures
@@ -143,12 +156,11 @@ class TextureAtlas:
 
     rgb: Vec3     # (M*H*W,) each channel
     alpha: Array  # (M*H*W,)
-    width: int = struct.field(pytree_node=False, default=1)
-    height: int = struct.field(pytree_node=False, default=1)
+    width: int = static_field(1)
+    height: int = static_field(1)
     # Optional u8-packed copy (r | g<<8 | b<<16 | a<<24) as a
     # (ceil(M*H*W/128), 128) uint32 row-gather table — 4x smaller than
-    # the four f32 channels, which keeps huge atlases (pyramide_eau:
-    # 147MB as f32) inside the fast VMEM-resident gather path. Built by
+    # the four f32 channels (pyramide_eau: 147MB as f32). Built by
     # io.obj.build_atlas ONLY when every channel is exactly
     # n * f32(1/255) for integer n (the loader convention), so the
     # device-side reconstruction is bit-identical to the f32 tables;
@@ -166,7 +178,7 @@ class TextureAtlas:
         return TextureAtlas(Vec3.zeros((0,)), jnp.zeros((0,)), 1, 1)
 
 
-@struct.dataclass
+@pytree_dataclass
 class MatTable:
     """Per-material-id physics overrides, generalizing the hardcoded id
     checks in tri_uvmapping (/root/reference/texture.h:71-88)."""
@@ -237,7 +249,7 @@ class MatTable:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class SkyTexture:
     """Equirect sky texture for sphere_uvmapping (texture.h:92-112) applied
     to the last sphere ("derniere sphere = ciel", main.c:331).
@@ -251,15 +263,15 @@ class SkyTexture:
 
     rgb: Vec3  # (H*W,) per channel
     packed: Optional[Array] = None
-    width: int = struct.field(pytree_node=False, default=1)
-    height: int = struct.field(pytree_node=False, default=1)
+    width: int = static_field(1)
+    height: int = static_field(1)
 
     @staticmethod
     def empty() -> "SkyTexture":
         return SkyTexture(Vec3.zeros((0,)), None, 1, 1)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scene:
     """Full differentiable scene: spheres + textured triangle mesh + atlas
     + per-id material table + optional sky texture."""
@@ -271,7 +283,7 @@ class Scene:
     sky: SkyTexture
     # static: index of the sky sphere for textured-sky emission, or -1.
     # (main.c:64-71 keeps this path commented out; -1 reproduces that.)
-    sky_sphere_index: int = struct.field(pytree_node=False, default=-1)
+    sky_sphere_index: int = static_field(-1)
 
     @staticmethod
     def from_spheres(spheres: Spheres) -> "Scene":
@@ -311,19 +323,6 @@ class RenderConfig:
     refr_alpha_hi: float = 0.99
     # execution shape
     pixel_tile: int = 16384          # rays per wavefront
-    sample_chunk: int = 1            # samples traced per scan step
-    # kernel selection: fused Pallas closest-hit (kernels/intersect.py)
-    # vs the XLA distance-matrix path; pallas_interpret runs the kernel
-    # in interpreter mode (CPU testing). None = auto: enabled on TPU
-    # backends for scenes with >= 128 triangles (measured: mcworld
-    # 36 -> 31 ns/ray-bounce; tiny meshes lose to kernel overhead).
-    # Selection is bit-identical either way (tests/test_pallas.py).
-    use_pallas: "bool | None" = None
-    pallas_interpret: bool = False
-    # full-bounce-loop Pallas megakernel (kernels/trace_spheres.py);
-    # used when the scene qualifies (sphere-only, no AO), forward pass
-    # only — gradients always take the scan path
-    use_megakernel: bool = False
     # differentiable-mode texture filtering: nearest (reference
     # semantics, piecewise-constant in geometry) vs bilinear (continuous
     # UV->color, giving nonzero vertex/camera gradients)
@@ -337,25 +336,6 @@ class RenderConfig:
     # camera, emission — is unaffected). On: full texel gradients, used
     # by the sky-training tests.
     sky_texture_grads: bool = False
-    # quad merging (geometry/quads.py): coplanar triangle pairs found at
-    # scene load are intersected as single parallelograms inside the
-    # mesh megakernel (~2x fewer primitive tests on block-world meshes).
-    # quad_pairs is the static (i, j, opposite_vertex) tuple computed by
-    # detect_quad_pairs in load_scene; () disables the path. Winner
-    # indices remain triangle indices, so shading/gradients are shared
-    # with the per-triangle loop; radiance agrees to ulps (allclose
-    # tests), not bit-for-bit — merge_quads=False restores bit-identity
-    # with the scan integrator.
-    merge_quads: bool = True
-    quad_pairs: "tuple[tuple[int, int, int], ...]" = ()
-    # static axis-aligned classification of quad_pairs / leftover
-    # triangles (geometry/quads.classify_axis_aligned): the kernel
-    # serves axis-aligned rects/tris from cheaper per-(axis, sign)
-    # grouped loops. Parallel to quad_pairs: () = general, (k, s, m) =
-    # axis-aligned; quad_aa_tris lists (tri_index, k, s) for unpaired
-    # axis-aligned triangles.
-    quad_aa_rects: tuple = ()
-    quad_aa_tris: tuple = ()
 
     @property
     def n_pixels(self) -> int:

@@ -1,14 +1,12 @@
-"""SoA 3-vector math for TPU.
+"""SoA 3-vector math.
 
 The reference stores vectors as ``struct Vec3 { double e[3]; }``
-(/root/reference/vec3.h:7-146) and operates on them scalar-at-a-time. On
-TPU a trailing dimension of 3 wastes 125/128 lanes of every (8, 128)
-vector-register tile, so this module instead represents a batch of N
-vectors as *three separate (N,) component arrays* bundled in a
-:class:`Vec3` NamedTuple. Every operation is then a pure elementwise op
-over N, which XLA lays out densely on the VPU, and the structure is a
-pytree so it flows through ``jit``/``grad``/``scan``/``shard_map``
-unchanged.
+(the reference's vec3.h:7-146) and operates on them scalar-at-a-time.
+This module instead represents a batch of N vectors as *three separate
+(N,) component arrays* bundled in a :class:`Vec3` NamedTuple. Every
+operation is then a pure elementwise op over N with dense, unit-stride
+components, and the structure is a pytree so it flows through
+``jit``/``grad``/``scan``/``shard_map`` unchanged.
 
 Semantics mirror /root/reference/vec3.h and /root/reference/rtutility.h:
 ``dot``, ``cross``, ``length``, ``normalize``, ``negate``, ``lerp``
@@ -148,8 +146,8 @@ class Vec3(NamedTuple):
     # indexing / structural helpers
     # ------------------------------------------------------------------
     def take(self, idx: Array) -> "Vec3":
-        """Gather along the leading axis (TPU-fast: one row-gather for
-        all three components via gather_channels)."""
+        """Gather along the leading axis (one row-gather for all three
+        components via gather_channels)."""
         from raytpu.core.gather import gather_channels
 
         return Vec3(*gather_channels([self.x, self.y, self.z], idx))

@@ -5,7 +5,7 @@ The reference post-processes with Intel Open Image Denoise's pretrained
 (/root/reference/denoiser.h:31-91, invoked main.c:455), a black-box C
 library call on already-quantized 0-255 colors (denoiser.h:41-46).
 
-The TPU-native replacement is a *differentiable* joint-bilateral filter
+The replacement is a *differentiable* joint-bilateral filter
 over the same three AOVs, in linear float (quantization happens once at
 file write — documented, strictly-better divergence, SURVEY.md §7). It
 is pure jnp (static window unrolled into shifted adds — XLA fuses the
@@ -18,6 +18,5 @@ from raytpu.denoise.bilateral import DenoiseParams, denoise
 
 __all__ = ["DenoiseParams", "denoise"]
 
-# also available (imported lazily by callers to keep flax optional at
-# import time): raytpu.denoise.learned.denoise_learned — the trained
+# also available: raytpu.denoise.learned.denoise_learned — the trained
 # kernel-predicting CNN; raytpu.denoise.quality — PSNR/SSIM scoring.

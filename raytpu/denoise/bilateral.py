@@ -14,7 +14,7 @@ the albedo/normal guides are exactly the AOVs the reference feeds OIDN
 
 The window loop is a static Python unroll of shifted images (jnp.roll
 with edge masking), so XLA sees (2r+1)^2 fused multiply-adds over
-(H, W, 3) arrays — VPU-friendly, no gathers. All sigmas are
+(H, W, 3) arrays — no gathers. All sigmas are
 differentiable scalars; the filter itself is differentiable in the
 inputs, so it can sit inside the inverse-rendering loss.
 """
@@ -24,17 +24,18 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
-from flax import struct
 from jax import Array
 
+from raytpu.core.types import pytree_dataclass, static_field
 
-@struct.dataclass
+
+@pytree_dataclass
 class DenoiseParams:
     sigma_spatial: Array
     sigma_albedo: Array
     sigma_normal: Array
     sigma_color: Array
-    radius: int = struct.field(pytree_node=False, default=3)
+    radius: int = static_field(3)
 
     @staticmethod
     def default(

@@ -14,8 +14,8 @@ Kernel prediction (vs direct color regression) keeps the output inside
 the convex hull of the noisy neighborhood: energy-bounded, no color
 shifts, stable with little training data — and the apply step is the
 same shifted-adds pattern as the bilateral, so the whole model is
-convolutions + elementwise (MXU/VPU friendly) and differentiable
-end-to-end for inverse rendering.
+convolutions + elementwise and differentiable end-to-end for inverse
+rendering.
 
 Training: tools/train_denoiser.py self-generates (low-spp, high-spp)
 pairs with the renderer and minimizes L1 on tonemapped color; weights
@@ -30,35 +30,47 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
 from jax import Array
 
 RADIUS = 3          # 7x7 predicted kernels, like the bilateral window
 FEATURES = 24
 DEPTH = 4
+IN_CHANNELS = 9     # log1p(color), albedo, normal
 
 WEIGHTS_PATH = os.path.join(os.path.dirname(__file__), "weights", "kpcn.npz")
 
 
-class KPCN(nn.Module):
-    """Per-pixel kernel predictor over (color, albedo, normal)."""
+def _layer_shapes() -> list[tuple[int, int]]:
+    """(in, out) channels of each 3x3 conv: DEPTH hidden layers with a
+    ReLU, then the (2r+1)^2 kernel-logit layer."""
+    widths = [IN_CHANNELS] + [FEATURES] * DEPTH + [(2 * RADIUS + 1) ** 2]
+    return list(zip(widths[:-1], widths[1:]))
 
-    features: int = FEATURES
-    depth: int = DEPTH
-    radius: int = RADIUS
 
-    @nn.compact
-    def __call__(self, color: Array, albedo: Array, normal: Array) -> Array:
-        n_taps = (2 * self.radius + 1) ** 2
-        x = jnp.concatenate(
-            [jnp.log1p(jnp.maximum(color, 0.0)), albedo, normal], axis=-1
-        )
-        for _ in range(self.depth):
-            x = nn.Conv(self.features, (3, 3))(x)
-            x = nn.relu(x)
-        logits = nn.Conv(n_taps, (3, 3))(x)
-        weights = jax.nn.softmax(logits, axis=-1)       # (H, W, taps)
-        return apply_kernels(color, weights, self.radius)
+def _conv3x3(x: Array, kernel: Array, bias: Array) -> Array:
+    """'SAME' 3x3 convolution of an (H, W, C) image, HWIO kernel."""
+    y = jax.lax.conv_general_dilated(
+        x[None], kernel, window_strides=(1, 1), padding="SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+    )
+    return y[0] + bias
+
+
+def kpcn(params: Any, color: Array, albedo: Array, normal: Array) -> Array:
+    """Per-pixel kernel predictor over (color, albedo, normal).
+    ``params["params"]["Conv_<i>"]`` holds each layer's kernel and bias."""
+    layers = params["params"]
+    n = len(_layer_shapes())
+    x = jnp.concatenate(
+        [jnp.log1p(jnp.maximum(color, 0.0)), albedo, normal], axis=-1
+    )
+    for i in range(n):
+        conv = layers[f"Conv_{i}"]
+        x = _conv3x3(x, conv["kernel"], conv["bias"])
+        if i < n - 1:
+            x = jax.nn.relu(x)
+    weights = jax.nn.softmax(x, axis=-1)                # (H, W, taps)
+    return apply_kernels(color, weights, RADIUS)
 
 
 def apply_kernels(color: Array, weights: Array, radius: int) -> Array:
@@ -86,10 +98,16 @@ def apply_kernels(color: Array, weights: Array, radius: int) -> Array:
 
 
 def init_params(key: Array | None = None):
-    model = KPCN()
+    """Random weights (LeCun-normal kernels, zero biases)."""
     key = key if key is not None else jax.random.PRNGKey(0)
-    dummy = jnp.zeros((16, 16, 3), jnp.float32)
-    return model.init(key, dummy, dummy, dummy)
+    init = jax.nn.initializers.lecun_normal()
+    layers = {}
+    for i, (cin, cout) in enumerate(_layer_shapes()):
+        layers[f"Conv_{i}"] = {
+            "kernel": init(jax.random.fold_in(key, i), (3, 3, cin, cout)),
+            "bias": jnp.zeros((cout,), jnp.float32),
+        }
+    return {"params": layers}
 
 
 def save_params(params: Any, path: str = WEIGHTS_PATH) -> None:
@@ -134,4 +152,4 @@ def denoise_learned(
                 f"no trained denoiser weights at {WEIGHTS_PATH}; "
                 "run tools/train_denoiser.py or use --denoise=bilateral"
             )
-    return KPCN().apply(params, color, albedo, normal)
+    return kpcn(params, color, albedo, normal)

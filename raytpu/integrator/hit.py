@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 
-from raytpu.core.gather import gather1d, gather_channels
+from raytpu.core.gather import gather_channels
 from raytpu.core.types import Materials, RenderConfig, Scene
 from raytpu.core.vec3 import Vec3
 from raytpu.geometry.sphere import (
@@ -33,20 +33,6 @@ from raytpu.geometry.triangle import (
     triangle_distances,
 )
 from raytpu.materials.texture import sky_emission, triangle_material
-
-
-def _resolve_use_pallas(scene: Scene, cfg: RenderConfig) -> bool:
-    """cfg.use_pallas None = auto: the fused selection kernel wins for
-    big triangle counts on real TPU backends (mcworld 36 -> 31
-    ns/ray-bounce) and loses to its launch overhead on tiny meshes
-    (pyramide 9.4 -> 10.7); CPU backends can only run it in interpreter
-    mode, which is opt-in via explicit flags."""
-    if cfg.use_pallas is not None:
-        return cfg.use_pallas
-    return (
-        scene.triangles.count >= 128
-        and jax.default_backend() != "cpu"
-    )
 
 
 class Hit(NamedTuple):
@@ -64,17 +50,9 @@ def closest_hit(
     direction: Vec3,
     cfg: RenderConfig,
     with_material: bool = True,
-    best_idx: Optional[Array] = None,
 ) -> Hit:
     """Vectorized closest_hit (main.c:52-92). ``geom`` is the precomputed
-    triangle bundle (pass None to compute on the fly).
-
-    ``best_idx`` injects a precomputed winner per ray (-1 miss,
-    0..S-1 sphere, S.. triangle — the megakernel's bidx encoding) and
-    skips selection entirely, leaving only the differentiable winner
-    recompute + gathers. This is the megakernel-backward replay path
-    (kernels/trace_scene._mkm_bwd): selection is stop_gradient'd anyway,
-    so gradients through a replayed hit are op-for-op the scan path's."""
+    triangle bundle (pass None to compute on the fly)."""
     b = origin.x.shape[0]
     n_spheres = scene.spheres.count
     n_tris = scene.triangles.count
@@ -92,58 +70,32 @@ def closest_hit(
     if n_tris > 0 and geom is None:
         geom = precompute(scene.triangles)
 
-    use_pallas = best_idx is None and _resolve_use_pallas(scene, cfg)
-    if use_pallas:
-        from raytpu.kernels.intersect import pallas_select, pallas_supported
-    if best_idx is not None:
-        # winner injected (replay): decode the megakernel's bidx the same
-        # way as the fused selector's output below
-        found = best_idx >= 0
-        tri_wins = best_idx >= n_spheres
-        s_idx = jnp.where(tri_wins | ~found, 0, best_idx)
-        t_idx = jnp.where(tri_wins, best_idx - n_spheres, 0)
-    elif use_pallas and pallas_supported(scene):
-        # fused VMEM-resident selection (raytpu.kernels.intersect)
-        best_t, best_idx = pallas_select(
-            jax.tree.map(sg, scene), jax.tree.map(sg, geom), o_sg, d_sg,
-            cfg.sphere_eps, cfg.tri_det_eps, cfg.tri_eps,
-            interpret=cfg.pallas_interpret,
+    # (B, prims) distances + first-occurrence argmin (ties resolve to the
+    # earlier primitive, like the reference's scan). Only the ARGMIN is
+    # reduced — the winning distances come from the recompute below, so
+    # no min pass is needed. XLA fuses the distances into the argmin
+    # reduction: the (B, prims) matrix is never materialized (PERF.md).
+    if n_spheres > 0:
+        s_dists = sphere_distances(
+            o_sg, d_sg, sg(scene.spheres.center), sg(scene.spheres.radius),
+            eps=cfg.sphere_eps,
         )
-        found = best_idx >= 0
-        tri_wins = best_idx >= n_spheres
-        s_idx = jnp.where(tri_wins | ~found, 0, best_idx)
-        t_idx = jnp.where(tri_wins, best_idx - n_spheres, 0)
+        s_idx = jnp.argmin(s_dists, axis=1)
     else:
-        # XLA fallback: (B, prims) distance matrices + first-occurrence
-        # argmin (ties resolve to the earlier primitive, like the scan).
-        # Only the ARGMIN is reduced from the matrix — the winning
-        # distances come from the recompute below, so no jnp.min pass is
-        # needed (the variadic min+argmin reduce costs ~4x a plain
-        # argmin on this backend). tri_wins/found are derived after the
-        # recompute; ``None`` marks them pending.
-        if n_spheres > 0:
-            s_dists = sphere_distances(
-                o_sg, d_sg, sg(scene.spheres.center), sg(scene.spheres.radius),
-                eps=cfg.sphere_eps,
-            )
-            s_idx = jnp.argmin(s_dists, axis=1)
-        else:
-            s_idx = jnp.zeros((b,), jnp.int32)
-        if n_tris > 0:
-            t_dists = triangle_distances(
-                o_sg, d_sg, jax.tree.map(sg, geom),
-                det_eps=cfg.tri_det_eps, eps=cfg.tri_eps,
-            )
-            t_idx = jnp.argmin(t_dists, axis=1)
-        else:
-            t_idx = jnp.zeros((b,), jnp.int32)
-        found = tri_wins = None
+        s_idx = jnp.zeros((b,), jnp.int32)
+    if n_tris > 0:
+        t_dists = triangle_distances(
+            o_sg, d_sg, jax.tree.map(sg, geom),
+            det_eps=cfg.tri_det_eps, eps=cfg.tri_eps,
+        )
+        t_idx = jnp.argmin(t_dists, axis=1)
+    else:
+        t_idx = jnp.zeros((b,), jnp.int32)
 
     # --- differentiable recompute of the winner's distance -------------
     if n_spheres > 0:
-        # one row-gather for EVERY sphere winner channel (center, radius
-        # and, when shading, the 10 material channels) — separate
-        # takes cost ~0.5-2.4ns/ray each on TPU
+        # one gather for EVERY sphere winner channel (center, radius
+        # and, when shading, the 10 material channels)
         sph = scene.spheres
         s_chans = [sph.center.x, sph.center.y, sph.center.z, sph.radius]
         if with_material:
@@ -190,12 +142,11 @@ def closest_hit(
     else:
         t_t = inf
 
-    if tri_wins is None:
-        # spheres scanned first; triangle wins only on strictly smaller
-        # dst (main.c:52-92 tie-break), judged on the recomputed values
-        # (bitwise equal to the matrix entries)
-        tri_wins = t_t < s_t
-        found = jnp.isfinite(jnp.where(tri_wins, t_t, s_t))
+    # spheres scanned first; triangle wins only on strictly smaller dst
+    # (main.c:52-92 tie-break), judged on the recomputed values (bitwise
+    # equal to the matrix entries)
+    tri_wins = t_t < s_t
+    found = jnp.isfinite(jnp.where(tri_wins, t_t, s_t))
 
     dst = jnp.where(found, jnp.where(tri_wins, t_t, s_t), jnp.inf)
     did_hit = jnp.isfinite(dst)
@@ -271,24 +222,12 @@ def any_hit(
 
     The result is a non-differentiable boolean, so unlike closest_hit no
     argmin, winner gather, or differentiable recompute is needed — just
-    an any-reduce over the masked distance matrices (or the Pallas
-    selector's found mask)."""
+    an any-reduce over the masked distances."""
     b = origin.x.shape[0]
     sg = jax.lax.stop_gradient
     o_sg, d_sg = jax.tree.map(sg, (origin, direction))
     if scene.triangles.count > 0 and geom is None:
         geom = precompute(scene.triangles)
-
-    if _resolve_use_pallas(scene, cfg):
-        from raytpu.kernels.intersect import pallas_select, pallas_supported
-
-        if pallas_supported(scene):
-            _, best_idx = pallas_select(
-                jax.tree.map(sg, scene), jax.tree.map(sg, geom), o_sg, d_sg,
-                cfg.sphere_eps, cfg.tri_det_eps, cfg.tri_eps,
-                interpret=cfg.pallas_interpret,
-            )
-            return best_idx >= 0
 
     found = jnp.zeros((b,), bool)
     if scene.spheres.count > 0:

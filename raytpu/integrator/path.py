@@ -1,6 +1,6 @@
 """Fixed-depth light-transport integrator as a ``lax.scan`` over bounces.
 
-This is the TPU-native reformulation of ``tracer``
+This is the data-parallel reformulation of ``tracer``
 (/root/reference/main.c:118-242): the reference's early-exit bounce loop
 with per-ray linked-list IOR stack becomes a fixed-depth scan carrying an
 alive mask and a fixed-K array stack, so the whole estimate is one traced,
@@ -44,7 +44,7 @@ differentiable computation. Reproduced semantics, bounce by bounce:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -100,7 +100,6 @@ def trace(
     origin: Vec3,
     direction: Vec3,
     bounce_draws: Array,
-    bounce_idx: Optional[Array] = None,
 ) -> tuple[Vec3, Vec3, Vec3]:
     """Estimate (radiance, albedo AOV, normal AOV) for a batch of rays.
 
@@ -108,23 +107,12 @@ def trace(
     rng.ray_uniforms — pregenerated in one threefry batch per ray and fed
     to the scan as xs, so the consumption pattern matches the f64 oracle
     exactly.
-
-    bounce_idx: optional (max_bounces, B) int32 winner indices (the
-    megakernel's bidx encoding) — when given, each bounce's closest-hit
-    SELECTION is skipped and the hit is reconstructed differentiably from
-    the index (the megakernel-backward replay; see closest_hit).
     """
     geom = precompute(scene.triangles) if scene.triangles.count > 0 else None
 
     def bounce(state: TraceState, xs) -> tuple[TraceState, None]:
-        if bounce_idx is None:
-            i, draws = xs  # draws: (n_draws, B)
-            bidx = None
-        else:
-            i, draws, bidx = xs
-        hit = closest_hit(
-            scene, geom, state.origin, state.direction, cfg, best_idx=bidx
-        )
+        i, draws = xs  # draws: (n_draws, B)
+        hit = closest_hit(scene, geom, state.origin, state.direction, cfg)
         mat = hit.mat
         active = state.active
 
@@ -250,10 +238,6 @@ def trace(
 
     state0 = init_state(origin, direction)
     steps = jnp.arange(cfg.max_bounces, dtype=jnp.int32)
-    xs = (
-        (steps, bounce_draws)
-        if bounce_idx is None
-        else (steps, bounce_draws, bounce_idx)
-    )
+    xs = (steps, bounce_draws)
     final, _ = jax.lax.scan(bounce, state0, xs)
     return final.incoming, final.albedo, final.normal_aov

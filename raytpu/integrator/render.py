@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import Array
+from jax.custom_derivatives import SymbolicZero
 
 from raytpu.camera import Camera, get_rays
 from raytpu.core import rng
@@ -64,9 +65,8 @@ _logged_fallbacks: set = set()
 
 
 def _log_fallback(reasons: str) -> None:
-    """One stderr line when a production-sized render that asked for the
-    megakernel is served by the scan path (VERDICT r2 weak #7: the silent
-    ~6x drop). Deduplicated per reason string for the process."""
+    """One stderr line when a GPU render of an unsupported scene is served
+    by the scan path. Deduplicated per reason string for the process."""
     if reasons in _logged_fallbacks:
         return
     _logged_fallbacks.add(reasons)
@@ -79,6 +79,21 @@ def _log_fallback(reasons: str) -> None:
     )
 
 
+def kernel_serves(scene: Scene, platform: Optional[str] = None) -> bool:
+    """Whether the Triton sphere megakernel serves ``scene``: on a GPU
+    backend for every scene ``trace_spheres.supported`` accepts. Other
+    backends, and unsupported scenes (logged once), take the scan path.
+    ``platform`` defaults to ``jax.default_backend()``."""
+    if (platform or jax.default_backend()) != "gpu":
+        return False
+    from raytpu.kernels import trace_spheres
+
+    reasons = trace_spheres.unsupported_reasons(scene)
+    if reasons:
+        _log_fallback(", ".join(reasons))
+    return not reasons
+
+
 def render(
     scene: Scene,
     cam: Camera,
@@ -88,6 +103,8 @@ def render(
     sample_offset: int = 0,
     n_samples: Optional[int] = None,
     init: Optional[RenderSums] = None,
+    *,
+    _route: Optional[str] = None,
 ) -> RenderSums:
     """Accumulate ``n_samples`` samples for a batch of pixels.
 
@@ -95,79 +112,57 @@ def render(
     sample indices [offset, offset + n) so sample-axis sharding and
     checkpoint/resume consume exactly the same RNG streams as a
     single-device run.
+
+    Each sample is traced by the sphere megakernel where
+    :func:`kernel_serves`, else by the scan integrator. ``_route``
+    ("kernel" or "scan") overrides that choice for tests and the chip
+    smoke test; off a GPU the kernel runs in the Pallas interpreter.
     """
     n = cfg.spp if n_samples is None else n_samples
-    b = pixel_ids.shape[0]
-    pix_keys = rng.pixel_keys(key, pixel_ids)
-
     if init is None:
+        b = pixel_ids.shape[0]
         init = RenderSums(
             Vec3.zeros((b,)), Vec3.zeros((b,)), Vec3.zeros((b,)),
             jnp.zeros((), jnp.int32),
         )
+    if _route is None:
+        _route = "kernel" if kernel_serves(scene) else "scan"
+    # an array, so sample_offset may be a traced value (the sharded path
+    # derives it from lax.axis_index)
+    args = (scene, cam, pixel_ids, key, jnp.asarray(sample_offset, jnp.int32), init)
+    if _route == "kernel":
+        return _accumulate_kernel(cfg, n, *args)
+    if _route == "scan":
+        return _accumulate(trace, cfg, n, *args)
+    raise ValueError(f"unknown route {_route!r}")
 
+
+def _accumulate(trace_fn, cfg, n, scene, cam, pixel_ids, key, sample_offset,
+                init):
+    """The sample loop: ``n`` samples from ``sample_offset`` on, each
+    traced by ``trace_fn`` (integrator.path.trace or the megakernel)."""
     from raytpu.integrator.path import n_bounce_draws
 
-    # One sample's full trace is rematerialized in the backward pass
+    pix_keys = rng.pixel_keys(key, pixel_ids)
+
+    # One sample's trace is rematerialized in the backward pass
     # (jax.checkpoint): without it, reverse-mode through the
     # (samples x bounces) scan-of-scan keeps every bounce's intermediates
-    # for every sample alive at once — ~tens of GB at production sizes
-    # (it crashes the TPU compiler outright at 1200x900). With remat the
-    # residual footprint is one sample's carry, and each sample's bounce
-    # scan is recomputed during its backward step (HBM-for-FLOPs trade,
-    # SURVEY.md 'jax.checkpoint / rematerialisation').
-    kernel_fn = None
-    if cfg.use_megakernel:
-        from raytpu.kernels import trace_scene, trace_spheres
-
-        if trace_spheres.supported(scene, cfg):
-            kernel_fn = trace_spheres.trace_megakernel
-        elif trace_scene.supported(scene, cfg):
-            kernel_fn = trace_scene.trace_mesh_megakernel
-        elif b * n >= 64 * 1024:
-            # a production-sized render silently dropping to the scan
-            # path costs up to ~6x throughput — say why, once per gate
-            # combination (this runs at Python/trace time, not per step)
-            mod = trace_scene if scene.triangles.count > 0 else trace_spheres
-            _log_fallback(", ".join(mod.unsupported_reasons(scene, cfg)))
-
-    # NOTE: pix_keys / pixel_ids are explicit arguments (not closure
-    # captures): a custom_vjp function must not close over traced values
-    # — under an enclosing jit they become tracers and break residual
-    # packing ("No constant handler for DynamicJaxprTracer").
-    def scan_sample(scene, cam, pix_keys, pixel_ids, s):
+    # for every sample alive at once — tens of GB at 1200x900. With remat
+    # the residual footprint is one sample's carry plus (scene, cam,
+    # keys); each sample's rays and draws are recomputed from the RNG
+    # during its backward step.
+    @jax.checkpoint
+    def traced_sample(scene, cam, s):
         ray_keys = rng.sample_keys(pix_keys, s)
         cam_draws, bounce_draws = rng.ray_uniforms(
             ray_keys, 4, n_bounce_draws(cfg), cfg.max_bounces
         )
         origin, direction = sample_rays(cam, cfg, pixel_ids, cam_draws)
-        return trace(scene, cfg, origin, direction, bounce_draws)
-
-    if kernel_fn is not None:
-        # both megakernels define their own backward (the sphere
-        # kernel's hand-structured backward Pallas kernel, the mesh
-        # kernel's index-replay VJP): grad flows straight through.
-        # jax.checkpoint keeps the per-sample residuals down to
-        # (scene, cam, keys) — the kernel's inputs (rays, draws) are
-        # recomputed from the RNG during backward instead of being
-        # stored for every sample at once.
-        def mk_direct(scene, cam, pix_keys, pixel_ids, s):
-            ray_keys = rng.sample_keys(pix_keys, s)
-            cam_draws, bounce_draws = rng.ray_uniforms(
-                ray_keys, 4, n_bounce_draws(cfg), cfg.max_bounces
-            )
-            origin, direction = sample_rays(cam, cfg, pixel_ids, cam_draws)
-            return kernel_fn(
-                scene, cfg, origin, direction, bounce_draws,
-                interpret=cfg.pallas_interpret,
-            )
-
-        traced_sample = jax.checkpoint(mk_direct)
-    else:
-        traced_sample = jax.checkpoint(scan_sample)
+        return trace_fn(scene, cfg, origin, direction, bounce_draws)
 
     def sample_step(sums: RenderSums, s: Array):
-        rad, alb, nrm = traced_sample(scene, cam, pix_keys, pixel_ids, s)
+        rad, alb, nrm = traced_sample(scene, cam, s)
         return (
             RenderSums(
                 sums.radiance + rad,
@@ -178,13 +173,51 @@ def render(
             None,
         )
 
-    # offset added after arange so sample_offset may be a traced value
-    # (the sharded path derives it from lax.axis_index)
-    sample_idx = jnp.arange(n, dtype=jnp.int32) + jnp.asarray(
-        sample_offset, jnp.int32
-    )
+    sample_idx = jnp.arange(n, dtype=jnp.int32) + sample_offset
     sums, _ = jax.lax.scan(sample_step, init, sample_idx)
     return sums
+
+
+@functools.partial(jax.custom_jvp, nondiff_argnums=(0, 1))
+def _accumulate_kernel(cfg, n, scene, cam, pixel_ids, key, sample_offset,
+                       init):
+    """_accumulate with the sphere megakernel tracing each sample.
+
+    Differentiating it runs the scan path instead: the JVP rule is
+    ``jax.jvp`` of the scan path's sample loop, so a gradient is plain
+    ``jax.grad`` of the scan path. On an H100 that beat the kernel
+    forward followed by any per-sample backward rule (PERF.md)."""
+    from raytpu.kernels.trace_spheres import trace_megakernel
+
+    trace_fn = functools.partial(
+        trace_megakernel, interpret=jax.default_backend() != "gpu"
+    )
+    return _accumulate(trace_fn, cfg, n, scene, cam, pixel_ids, key,
+                       sample_offset, init)
+
+
+def _accumulate_kernel_jvp(cfg, n, primals, tangents):
+    # Inputs with a symbolic-zero tangent enter as constants, as they do
+    # under jax.grad of the scan path: the scan path's custom_vjp gathers
+    # cannot be pushed forward with a known (zero) tangent.
+    leaves, tree = jax.tree.flatten(primals)
+    t_leaves = jax.tree.leaves(tangents)
+    live = [not isinstance(t, SymbolicZero) for t in t_leaves]
+
+    def scan_loop(*xs):
+        it = iter(xs)
+        full = [next(it) if on else x
+                for x, on in zip(leaves, live, strict=True)]
+        return _accumulate(trace, cfg, n, *jax.tree.unflatten(tree, full))
+
+    return jax.jvp(
+        scan_loop,
+        [x for x, on in zip(leaves, live) if on],
+        [t for t, on in zip(t_leaves, live) if on],
+    )
+
+
+_accumulate_kernel.defjvp(_accumulate_kernel_jvp, symbolic_zeros=True)
 
 
 @functools.partial(jax.jit, static_argnums=(2,))
@@ -197,15 +230,9 @@ def blocked_pixel_order(cfg: RenderConfig, block_w: int = 128,
     """Pixel ids in screen-block-major order (128x64 blocks, row-major
     inside each block).
 
-    The megakernels trace tiles of consecutive ids; with row-major
-    arange ids a 8192-ray tile is a 7-row strip of a 1200-wide frame,
-    and its rays diverge so much that the chunk culls almost never skip
-    (measured: NO_CULL == culled throughput on mcworld). A 128x64 block
-    is one full ROWS_BIG tile (or two stacked ROWS_WIDE_ATLAS tiles) of
-    a compact screen rectangle — a coherent ray cone, so per-tile
-    early-outs and cull pruning actually fire (+4% on mcworld, neutral
-    on sphere scenes). RNG keys hang off the pixel ID, so any order
-    produces bit-identical per-pixel values.
+    Consecutive ids then form compact screen rectangles — coherent ray
+    cones — instead of thin row strips. RNG keys hang off the pixel ID,
+    so any order produces bit-identical per-pixel values.
     """
     w, h = cfg.width, cfg.height
     ids = np.arange(w * h, dtype=np.int32).reshape(h, w)
@@ -241,8 +268,8 @@ def render_image(
     alb = np.zeros((n_pix, 3), np.float32)
     nrm = np.zeros((n_pix, 3), np.float32)
 
-    # block-major pixel order (blocked_pixel_order): coherent ray cones
-    # per kernel tile; results scatter back by pixel id. Padding repeats
+    # block-major pixel order (blocked_pixel_order); results scatter
+    # back by pixel id. Padding repeats
     # the last id — its duplicate entries compute identical sums, so the
     # scatter is id-idempotent.
     order = blocked_pixel_order(cfg)

@@ -41,28 +41,11 @@ from raytpu.integrator.render import (
 def _fingerprint(cfg: RenderConfig, seed: int) -> dict:
     d = dataclasses.asdict(cfg)
     d["seed"] = seed
-    # execution-strategy knobs must not invalidate a resume:
-    # use_pallas/pallas_interpret are bit-identical (tests/test_pallas),
     # pixel_tile only changes host-side batching (per-pixel sums are
-    # tile-independent), and use_megakernel agrees with the scan path
-    # to ulps per backend (same class as use_pallas) — without popping
-    # these, checkpoints written before the CLI enabled the fast path
-    # (or on a CPU host) could never resume on TPU.
-    # EXCEPTION (ADVICE r4): with merge_quads active the mesh kernel's
-    # rectangle path is only allclose to the scan path (knife-edge
-    # winner flips, tests/test_quad_merge.py disclaims bit-identity), so
-    # a cross-path resume there would NOT be bit-reproducible against an
-    # uninterrupted run — keep use_megakernel in the fingerprint for
-    # merged-quad scenes and let such a resume fail loudly instead.
-    d.pop("use_pallas", None)
-    d.pop("pallas_interpret", None)
+    # tile-independent), so it must not invalidate a resume
     d.pop("pixel_tile", None)
-    if not (cfg.merge_quads and cfg.quad_pairs):
-        d.pop("use_megakernel", None)
-    # canonicalize through a JSON round-trip: tuple-typed fields
-    # (quad_pairs) otherwise come back from the sidecar as lists and the
-    # strict comparison in load_checkpoint rejects EVERY resume
-    # (VERDICT r3 item 2 / ADVICE r3 high #2)
+    # canonicalize through a JSON round-trip, the form the sidecar
+    # stores, so load_checkpoint compares like with like
     return json.loads(json.dumps(d))
 
 

@@ -12,11 +12,10 @@ height-1..0), so v=0 in UV space is the image bottom.
 
 Quantization convention: u8 samples normalize as ``n * f32(1/255)``
 (not ``n / 255``, the reference's texture.h formulation; <= 1 ulp
-apart on 96 of 256 values). Multiplication is correctly rounded on the
-TPU VPU while lowered division is not, so this convention lets the
-renderer reconstruct texels bit-exactly from u8-packed atlas tables
-(core/gather.py take_packed_rgba) — the layout that keeps >100MB
-atlases (pyramide_eau: 9.2M texels) inside a VMEM-resident row-gather.
+apart on 96 of 256 values). Multiplication is correctly rounded on
+every backend while a compiled division need not be, so this convention
+lets the renderer reconstruct texels bit-exactly from u8-packed atlas
+tables (core/gather.py take_packed_rgba), a quarter of the f32 bytes.
 Every producer (here, ppm.py, the native C++ parser, solid-Kd tiles in
 io/obj.py) uses the same convention, and the oracle consumes the same
 Scene, so all bit-identity guarantees are preserved repo-wide.

@@ -1,28 +1,24 @@
-"""Pallas megakernel: the ENTIRE bounce loop for sphere scenes.
+"""Triton megakernel: the whole bounce loop for sphere scenes.
 
-This is the wavefront megakernel the north star names: per-ray
-intersection + shading + light accumulation for all bounces fused into
-ONE kernel launch — the TPU-native reformulation of the reference's
-per-pixel ``tracer`` loop (/root/reference/main.c:118-242 /
-main_cuda.cu:86-141). Between bounces every carried quantity (origin,
-direction, throughput, radiance, AOVs, alive mask, medium IOR) lives in
-vector registers / VMEM; nothing round-trips through HBM.
-
-Scope: every sphere-scene configuration up to 64 spheres — forward AND
-backward (``_bwd_kernel``), AO probes in-kernel, configurable HSL
-factors, refraction/cutout, equirect sky via the slot scheme. The XLA
-scan path (integrator.path.trace) remains the general, always-correct
-implementation; render() dispatches here when ``cfg.use_megakernel``
-is set and the scene qualifies (see ``supported()``), and the two are
-tested against each other (tests/test_megakernel.py).
+One Pallas program (``backend="triton"``) traces a block of ``BLOCK``
+rays through every bounce: closest-sphere search, shading, refraction,
+AO probes and light accumulation, with the per-ray state (origin,
+direction, throughput, radiance, AOVs, alive mask, medium IOR) kept in
+registers. This is the reference CUDA renderer's design — one thread
+per pixel running the whole bounce loop (main_cuda.cu:86-171) — where
+the XLA scan path (integrator.path.trace) writes that state to device
+memory between the several fusions of every bounce.
 
 Semantics mirror integrator.path bounce-for-bounce: AOV base cases,
-emissive early return (identity HSL round-trip), diffuse/specular lerp,
-probabilistic refraction with the reduced pile.h medium scalar, alpha
-cutout, the x1.3 double-multiply bright quirk, miss termination.
-RNG draws are precomputed OUTSIDE the kernel with the same threefry
-streams (rng.ray_uniforms), so results match the scan path and the f64
-oracle's consumption pattern.
+emissive early return (HSL boost), diffuse/specular lerp, probabilistic
+refraction with the reduced pile.h medium scalar, alpha cutout, the
+x1.3 double-multiply bright quirk, miss termination. RNG draws are
+precomputed outside the kernel with the same threefry streams
+(rng.ray_uniforms), so the kernel consumes exactly the scan path's and
+the f64 oracle's draws.
+
+The kernel has no derivative rule: ``render()`` differentiates its
+kernel route through the scan path (integrator/render.py).
 """
 
 from __future__ import annotations
@@ -31,713 +27,279 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax import Array
+from jax import Array, lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from raytpu.core.types import Materials, RenderConfig, Scene, Spheres
-from raytpu.core.vec3 import Vec3
+from raytpu.core.color import hsl_boost
+from raytpu.core.types import RenderConfig, Scene
+from raytpu.core.vec3 import Vec3, random_unit_vector, reflect, refract
+from raytpu.geometry.sphere import sphere_distance_one
 
-import os as _os
-
-LANE = 128
-ROWS = int(_os.environ.get("RAYTPU_SPH_ROWS", "16"))
-                    # rays per grid step = 2048; larger tiles spill registers
-                    # ~24 live per-ray planes in registers (env override
-                    # is a probe knob, like RAYTPU_MK_ROWS)
-BWD_ROWS = 8        # backward kernel: AD keeps every bounce's
-                    # intermediates live for the reverse sweep (~6x the
-                    # forward's footprint); 16 measures the same at 6
-                    # bounces (313 vs 314 Mrays/s) but 8 leaves headroom
-                    # for deep-bounce configs (19-bounce refraction)
-BIG = 3.0e38
+# rays per program and warps per program: the fastest of 128/256/512 x
+# 2/4/8 in one timing of the flagship forward on an H100 (PERF.md)
+BLOCK = 128
+NUM_WARPS = 4
+MAX_SPHERES = 64   # past this a per-ray linear scan loses to a hierarchy
+N_CHAN = 14        # table rows: cx cy cz r | dif3 emi3 estr refl alpha ior
 
 
-def _pad_rows(x: Array, rows: int) -> Array:
-    pad = rows * LANE - x.shape[0]
-    return jnp.pad(x, (0, pad)).reshape(rows, LANE)
+def _closest(tab_ref, n_spheres, o: Vec3, d: Vec3, eps: float):
+    """Closest sphere per ray: (distance, index); index -1 on a miss.
+    Scalar table loads inside the loop; ties keep the earlier sphere,
+    like the reference's strictly-closer scan (main.c:52-92)."""
 
+    def body(s, carry):
+        best, bidx = carry
+        c = Vec3(tab_ref[0, s], tab_ref[1, s], tab_ref[2, s])
+        t = sphere_distance_one(o, d, c, tab_ref[3, s], eps=eps)
+        better = t < best
+        return jnp.where(better, t, best), jnp.where(better, s, bidx)
 
-def _forward_body(
-    sv,                               # ((S,)*14 scalars): sphere/material table
-    rox, roy, roz, rdx, rdy, rdz,     # (ROWS, LANE) ray tiles
-    draws,                            # list of BN*n_draws (ROWS, LANE) tiles
-    *, n_spheres, bounces, sphere_eps, alpha_lo, alpha_hi,
-    bright_boost, bright_threshold, n_draws, use_ao, ao_samples,
-    ao_intensity, ao_emission_factor, hsl_l, hsl_s,
-    sky_idx=-1, sky_w=0, sky_h=0, record=False,
-):
-    """The whole bounce loop as a PURE function of traced values.
-
-    Shared by the forward kernel (which writes its outputs) and the
-    backward kernel (which calls ``jax.vjp`` on it *inside* the kernel,
-    so the reverse sweep is machine-derived from the same code that
-    defines the forward — and both stay fused in VMEM). ``sv`` is a
-    tuple of 14 rows x n_spheres scalar values (the SMEM table read
-    out), kept as scalars so the VJP yields per-parameter scalar
-    cotangents reduced over the ray tile by AD itself.
-
-    Equirect sky (sky_idx >= 0): the 4096x2048 sky textures the reference
-    ships (model3D/hdr/) are far beyond VMEM, so the texel FETCH cannot
-    live in the kernel. Instead the kernel records, per ray, ONE sky-hit
-    slot — the equirect texel index (sphere_uvmapping, texture.h:92-112)
-    plus the throughput scale the texel multiplies — and the wrapper
-    composes radiance outside with a single XLA row-gather:
-        incoming = where(early, hsl_boost(sky_rgb), base + scale*sky_rgb)
-    One slot is EXACT under the reference's sky convention (the sky
-    sphere is a pure emitter with BLACK diffuse, main.c:331/347): the
-    first sky interaction either early-returns (ray done) or multiplies
-    the throughput by the black diffuse, so every later sky event
-    contributes exactly zero. raytpu.config enforces the convention at
-    scene load. With sky on, the body returns 16 planes:
-    9 base + scale3 + unit hit direction 3 + early flag (the direction,
-    not a texel index — Mosaic cannot lower the acos/atan2 UV chain, so
-    it runs outside in compose_sky, bit-identical to sky_emission).
-    """
-    f0 = jnp.zeros(rox.shape, jnp.float32)
-    f1 = jnp.ones(rox.shape, jnp.float32)
-
-    rcx, rcy, rcz = f1, f1, f1            # throughput (rayColor)
-    ix, iy, iz = f0, f0, f0               # incoming radiance
-    ax_, ay_, az_ = f0, f0, f0            # albedo AOV
-    nx_, ny_, nz_ = f0, f0, f0            # normal AOV
-    # Mosaic cannot select between i1 vectors (trunci i8->i1), so the
-    # carried masks live as f32 0/1 and comparisons produce local bools
-    active_f = f1
-    is_alpha_f = f0
-    alpha_depth = jnp.zeros(rox.shape, jnp.int32)
-    medium_n2 = f1
-    if sky_idx >= 0:
-        sklx, skly, sklz = f0, f0, f0     # sky-slot throughput scale
-        skdx, skdy, skdz = f0, f0, f0     # sky-slot unit hit direction
-        early_f = f0                      # slot is an emissive early return
-        slot_f = f0                       # slot taken
-    idx_rec, aof_rec = [], []             # record=True (grad forward):
-                                          # per-bounce winner indices +
-                                          # AO occlusion factors for the
-                                          # index-replay backward
-
-    for i in range(bounces):              # static unroll
-        active = active_f > 0.0
-        is_alpha = is_alpha_f > 0.0
-        # ---- closest sphere (main.c:52-92) --------------------------
-        a_quad = rdx * rdx + rdy * rdy + rdz * rdz
-        inv_2a = 0.5 / jnp.maximum(a_quad, 1e-20)
-        best = jnp.full(rox.shape, BIG, jnp.float32)
-        bidx = jnp.full(rox.shape, -1, jnp.int32)
-        for s in range(n_spheres):        # static unroll (S ~ 10)
-            cx, cy, cz, r = sv[0][s], sv[1][s], sv[2][s], sv[3][s]
-            ocx, ocy, ocz = rox - cx, roy - cy, roz - cz
-            b_ = 2.0 * (ocx * rdx + ocy * rdy + ocz * rdz)
-            c_ = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-            disc = b_ * b_ - 4.0 * a_quad * c_
-            # 1e-30 floor (not 0.0): at disc <= 0 the sqrt cotangent is
-            # inf and inf * (d max/d disc = 0) NaN-poisons every sphere
-            # gradient; the floor matches geometry/sphere.py:43 exactly
-            sq = jnp.sqrt(jnp.maximum(disc, 1e-30))
-            t1 = (-b_ - sq) * inv_2a
-            t2 = (-b_ + sq) * inv_2a
-            hit_s = disc > 0.0
-            t = jnp.where(
-                hit_s & (t1 >= sphere_eps), t1,
-                jnp.where(hit_s & (t2 >= sphere_eps), t2, BIG),
-            )
-            better = t < best
-            best = jnp.where(better, t, best)
-            bidx = jnp.where(better, s, bidx)
-
-        did_hit = bidx >= 0
-        if record:
-            # winner indices for the backward replay: live lanes record
-            # their winner (-1 = miss); lanes whose bounce is over are
-            # masked to -1, which the replay's active gating makes
-            # equivalent (same convention as the mesh kernel)
-            idx_rec.append(jnp.where(active, bidx, -1))
-        safe_t = jnp.where(did_hit, best, 0.0)
-        px = rox + rdx * safe_t
-        py = roy + rdy * safe_t
-        pz = roz + rdz * safe_t
-
-        # winner data: select-chain over the (static) sphere list
-        ch = [f0] * 14
-        for s in range(n_spheres):
-            m = bidx == s
-            for k in range(14):
-                ch[k] = jnp.where(m, sv[k][s], ch[k])
-        (cx, cy, cz, r, dfx, dfy, dfz, emx, emy, emz,
-         estr, refl, alpha, ior) = ch
-
-        if sky_idx >= 0:
-            # equirect sky slot (sphere_uvmapping, texture.h:92-112):
-            # the kernel records the unit hit DIRECTION d = (p - c)/r;
-            # the acos/atan2 UV chain runs OUTSIDE (compose_sky) — Mosaic
-            # has no acos/atan2 lowering, and outside it is op-for-op
-            # the scan path's sky_emission, so texel indices stay
-            # bit-identical. The emission placeholder is zeroed so the
-            # in-kernel accumulation contributes nothing; the wrapper
-            # adds scale * sky_rgb outside. The whole direction chain
-            # ends in a float->int floor outside, so it carries no
-            # gradient (same as sky_emission); the r-guard only keeps
-            # miss lanes (r == 0) finite.
-            sky_win = did_hit & (bidx == sky_idx)
-            emx = jnp.where(sky_win, f0, emx)
-            emy = jnp.where(sky_win, f0, emy)
-            emz = jnp.where(sky_win, f0, emz)
-            r_safe = jnp.where(r > 0.0, r, 1.0)   # miss lanes only; masked
-            sdx = (px - cx) / r_safe
-            sdy = (py - cy) / r_safe
-            sdz = (pz - cz) / r_safe
-
-        # outward normal normalize(p - c) (sphere.h:33,42)
-        nvx, nvy, nvz = px - cx, py - cy, pz - cz
-        n2 = nvx * nvx + nvy * nvy + nvz * nvz
-        inv_len = jnp.where(
-            n2 > 0, 1.0 / jnp.sqrt(jnp.maximum(n2, 1e-38)), 0.0
-        )
-        # miss rays carry a zeroed winner (c = r = 0), which would make
-        # normalize(p - 0) = p/|p|; the scan path's normal is zero there
-        inv_len = jnp.where(did_hit, inv_len, 0.0)
-        nX, nY, nZ = nvx * inv_len, nvy * inv_len, nvz * inv_len
-
-        # ---- AOV base cases (main.c:137-150) ------------------------
-        if i == 0:
-            ax_, ay_, az_ = dfx, dfy, dfz
-            nx_, ny_, nz_ = nX, nY, nZ
-        else:
-            aov_alpha = active & (i == alpha_depth) & is_alpha
-            em = estr > 0.0
-            ax_ = jnp.where(aov_alpha, jnp.where(em, emx, dfx), ax_)
-            ay_ = jnp.where(aov_alpha, jnp.where(em, emy, dfy), ay_)
-            az_ = jnp.where(aov_alpha, jnp.where(em, emz, dfz), az_)
-            nx_ = jnp.where(aov_alpha, nX, nx_)
-            ny_ = jnp.where(aov_alpha, nY, ny_)
-            nz_ = jnp.where(aov_alpha, nZ, nz_)
-            is_alpha = is_alpha & ~aov_alpha
-            is_alpha_f = jnp.where(is_alpha, f1, f0)
-
-        # ---- emissive early return + HSL boost (main.c:154-160) -----
-        emissive_ret = (
-            active & did_hit & (i == alpha_depth) & (estr > 0.0)
-        )
-        if hsl_l == 1.0 and hsl_s == 1.0:
-            bx, by, bz = emx, emy, emz   # identity round-trip skipped
-        else:
-            from raytpu.core.color import hsl_boost
-            from raytpu.core.vec3 import Vec3 as _V
-
-            bb_ = hsl_boost(_V(emx, emy, emz), hsl_l, hsl_s)
-            bx, by, bz = bb_.x, bb_.y, bb_.z
-        ix = jnp.where(emissive_ret, bx, ix)
-        iy = jnp.where(emissive_ret, by, iy)
-        iz = jnp.where(emissive_ret, bz, iz)
-        ax_ = jnp.where(emissive_ret, bx, ax_)
-        ay_ = jnp.where(emissive_ret, by, ay_)
-        az_ = jnp.where(emissive_ret, bz, az_)
-        nx_ = jnp.where(emissive_ret, nX, nx_)
-        ny_ = jnp.where(emissive_ret, nY, ny_)
-        nz_ = jnp.where(emissive_ret, nZ, nz_)
-        active = active & ~emissive_ret
-
-        live = active & did_hit
-
-        # ---- scatter (main.c:162-165) -------------------------------
-        u_d = draws[n_draws * i + 0]
-        v_d = draws[n_draws * i + 1]
-        roulette = draws[n_draws * i + 2]
-        theta = (2.0 * jnp.float32(jnp.pi)) * u_d
-        cph = jnp.clip(2.0 * v_d - 1.0, -1.0, 1.0)
-        sph_ = jnp.sqrt(jnp.maximum(1.0 - cph * cph, 0.0))
-        rux = jnp.cos(theta) * sph_
-        ruy = jnp.sin(theta) * sph_
-        ruz = cph
-        ddx, ddy, ddz = nX + rux, nY + ruy, nZ + ruz
-        dn2 = ddx * ddx + ddy * ddy + ddz * ddz
-        dinv = jnp.where(dn2 > 0, 1.0 / jnp.sqrt(jnp.maximum(dn2, 1e-38)), 0.0)
-        ddx, ddy, ddz = ddx * dinv, ddy * dinv, ddz * dinv
-        vdn = rdx * nX + rdy * nY + rdz * nZ
-        rfx = rdx - 2.0 * vdn * nX
-        rfy = rdy - 2.0 * vdn * nY
-        rfz = rdz - 2.0 * vdn * nZ
-        drx = ddx + (rfx - ddx) * refl
-        dry = ddy + (rfy - ddy) * refl
-        drz = ddz + (rfz - ddz) * refl
-
-        # ---- refraction (main.c:167-193, reduced pile.h) ------------
-        refr_case = live & (alpha <= alpha_hi) & (alpha >= alpha_lo)
-        exiting = vdn > 0.0
-        nex = jnp.where(exiting, -nX, nX)
-        ney = jnp.where(exiting, -nY, nY)
-        nez = jnp.where(exiting, -nZ, nZ)
-        n1_ = jnp.where(exiting, ior, medium_n2)
-        n2_ = jnp.where(exiting, medium_n2, ior)
-        medium_n2 = jnp.where(refr_case & ~exiting, ior, medium_n2)
-        n1s = n1_ * n1_
-        n2s = n2_ * n2_
-        # select-based floor, NOT jnp.maximum: ior == 0 lanes make
-        # n2s == 0 exactly and the div VJP's x/y^2 = inf, which Mosaic's
-        # op order turns into 0 * inf = NaN under the backward kernel
-        # (see trace_scene.shade_bounce for the full account). Guarded
-        # lanes' ratio changes but is discarded by the refr_case selects.
-        n2s_safe = jnp.where(n2s > 1e-20, n2s, 1.0)
-        ratio = jnp.clip(n1s / n2s_safe, 0.0, 1e6)
-        ndotv = nex * rdx + ney * rdy + nez * rdz
-        radical = 1.0 - (ratio * ratio) * (1.0 - ndotv * ndotv)
-        ct_scale = rdx * nex + rdy * ney + rdz * nez
-        tanx = (rdx - nex * ct_scale) * ratio
-        tany = (rdy - ney * ct_scale) * ratio
-        tanz = (rdz - nez * ct_scale) * ratio
-        sqr = jnp.sqrt(jnp.maximum(radical, 1e-20))
-        refx = tanx - nex * sqr
-        refy = tany - ney * sqr
-        refz = tanz - nez * sqr
-        # TIR falls back to mirror of the effective normal
-        vdne = rdx * nex + rdy * ney + rdz * nez
-        mrx = rdx - 2.0 * vdne * nex
-        mry = rdy - 2.0 * vdne * ney
-        mrz = rdz - 2.0 * vdne * nez
-        tir = radical <= 0.0
-        refx = jnp.where(tir, mrx, refx)
-        refy = jnp.where(tir, mry, refy)
-        refz = jnp.where(tir, mrz, refz)
-        do_refract = refr_case & (roulette > alpha)
-
-        # ---- opaque / cutout (main.c:195-206) -----------------------
-        cutout = live & (alpha < alpha_lo)
-        opaque = live & (alpha > alpha_hi)
-        is_alpha_f = jnp.where(opaque, f0, is_alpha_f)
-        is_alpha_f = jnp.where(cutout, f1, is_alpha_f)
-        alpha_depth = jnp.where(cutout, alpha_depth + 1, alpha_depth)
-
-        use_dr = live & ~do_refract & ~cutout
-        rox = jnp.where(live, px, rox)
-        roy = jnp.where(live, py, roy)
-        roz = jnp.where(live, pz, roz)
-        rdx = jnp.where(do_refract, refx, jnp.where(use_dr, drx, rdx))
-        rdy = jnp.where(do_refract, refy, jnp.where(use_dr, dry, rdy))
-        rdz = jnp.where(do_refract, refz, jnp.where(use_dr, drz, rdz))
-
-        # ---- accumulate (main.c:208-234) ----------------------------
-        accum = live & ~do_refract & ~cutout
-        e_scale = (
-            estr * (ao_emission_factor * ao_intensity) if use_ao else estr
-        )
-        if sky_idx >= 0:
-            # sky-slot bookkeeping: the first sky interaction is either
-            # an emissive early return (scale 1, hsl-boost applied
-            # outside) or a regular accumulation (scale = e_scale * rc,
-            # the factor the zeroed emission placeholder would have been
-            # multiplied by). Later sky events contribute exactly zero
-            # under the black-diffuse sky convention (body docstring).
-            take_e = emissive_ret & sky_win & (slot_f == 0.0)
-            take_a = accum & sky_win & (slot_f == 0.0)
-            take = take_e | take_a
-            sklx = jnp.where(take_e, f1, jnp.where(take_a, e_scale * rcx, sklx))
-            skly = jnp.where(take_e, f1, jnp.where(take_a, e_scale * rcy, skly))
-            sklz = jnp.where(take_e, f1, jnp.where(take_a, e_scale * rcz, sklz))
-            skdx = jnp.where(take, sdx, skdx)
-            skdy = jnp.where(take, sdy, skdy)
-            skdz = jnp.where(take, sdz, skdz)
-            early_f = jnp.where(take_e, f1, early_f)
-            slot_f = jnp.where(take, f1, slot_f)
-        ix = jnp.where(accum, ix + emx * e_scale * rcx, ix)
-        iy = jnp.where(accum, iy + emy * e_scale * rcy, iy)
-        iz = jnp.where(accum, iz + emz * e_scale * rcz, iz)
-        bright = (
-            (rcx > bright_threshold)
-            | (rcy > bright_threshold)
-            | (rcz > bright_threshold)
-        )
-        nbx = jnp.where(bright, dfx * (dfx * (rcx * bright_boost)), dfx * rcx)
-        nby = jnp.where(bright, dfy * (dfy * (rcy * bright_boost)), dfy * rcy)
-        nbz = jnp.where(bright, dfz * (dfz * (rcz * bright_boost)), dfz * rcz)
-        if use_ao:
-            # ambient occlusion probes (main.c:94-116): hemisphere rays
-            # from the hit point; occlusion = hits / (samples*intensity)
-            occ = f0
-            for s_i in range(ao_samples):
-                au = draws[n_draws * i + 3 + 2 * s_i]
-                av = draws[n_draws * i + 4 + 2 * s_i]
-                ath = (2.0 * jnp.float32(jnp.pi)) * au
-                acp = jnp.clip(2.0 * av - 1.0, -1.0, 1.0)
-                asp = jnp.sqrt(jnp.maximum(1.0 - acp * acp, 0.0))
-                aox_ = nX + jnp.cos(ath) * asp
-                aoy_ = nY + jnp.sin(ath) * asp
-                aoz_ = nZ + acp
-                an2 = aox_ * aox_ + aoy_ * aoy_ + aoz_ * aoz_
-                ainv = jnp.where(
-                    an2 > 0, 1.0 / jnp.sqrt(jnp.maximum(an2, 1e-38)), 0.0
-                )
-                aox_, aoy_, aoz_ = aox_ * ainv, aoy_ * ainv, aoz_ * ainv
-                aq = aox_ * aox_ + aoy_ * aoy_ + aoz_ * aoz_
-                ai2a = 0.5 / jnp.maximum(aq, 1e-20)
-                occ_hit = f0 > 1.0
-                for s2 in range(n_spheres):
-                    scx, scy, scz, sr = (
-                        sv[0][s2], sv[1][s2], sv[2][s2], sv[3][s2]
-                    )
-                    ocx2, ocy2, ocz2 = px - scx, py - scy, pz - scz
-                    b2 = 2.0 * (ocx2 * aox_ + ocy2 * aoy_ + ocz2 * aoz_)
-                    c2 = ocx2 * ocx2 + ocy2 * ocy2 + ocz2 * ocz2 - sr * sr
-                    d2 = b2 * b2 - 4.0 * aq * c2
-                    sq2 = jnp.sqrt(jnp.maximum(d2, 1e-30))
-                    tt1 = (-b2 - sq2) * ai2a
-                    tt2 = (-b2 + sq2) * ai2a
-                    h2 = d2 > 0.0
-                    occ_hit = occ_hit | (
-                        h2 & ((tt1 >= sphere_eps) | (tt2 >= sphere_eps))
-                    )
-                occ = occ + jnp.where(occ_hit, 1.0, 0.0)
-            factor = occ * (1.0 / (ao_samples * ao_intensity))
-            if record:
-                # piecewise-constant in every parameter (indicator sum),
-                # so the replay treats the recorded factor as a constant
-                # — gradient-exact (see trace_scene.shade_bounce)
-                aof_rec.append(factor)
-            nbx = nbx * factor
-            nby = nby * factor
-            nbz = nbz * factor
-        rcx = jnp.where(accum, nbx, rcx)
-        rcy = jnp.where(accum, nby, rcy)
-        rcz = jnp.where(accum, nbz, rcz)
-
-        active_f = jnp.where(active & did_hit, f1, f0)
-
-    if sky_idx >= 0:
-        outs = (ix, iy, iz, ax_, ay_, az_, nx_, ny_, nz_,
-                sklx, skly, sklz, skdx, skdy, skdz, early_f)
-    else:
-        outs = (ix, iy, iz, ax_, ay_, az_, nx_, ny_, nz_)
-    if record:
-        return outs, idx_rec, aof_rec
-    return outs
-
-
-def _read_table(sph_ref, n_spheres):
-    return tuple(
-        tuple(sph_ref[k, s] for s in range(n_spheres)) for k in range(14)
+    init = (
+        jnp.full(o.x.shape, jnp.inf, jnp.float32),
+        jnp.full(o.x.shape, -1, jnp.int32),
     )
+    return lax.fori_loop(0, n_spheres, body, init)
 
 
 def _kernel(
-    sph_ref,      # SMEM (14, S_pad): cx cy cz r | dif3 emi3 estr refl alpha ior
-    ox, oy, oz, dx, dy, dz,          # VMEM (ROWS, LANE) ray tiles
-    draws_ref,                        # VMEM (BN*n_draws, ROWS, LANE)
-    *out_refs,   # 9 planes (inc3 alb3 nrm3) + 7 sky planes when sky is
-                 # on; with_indices adds a (BN, R, L) i32 winner-index
-                 # block and (use_ao) a (BN, R, L) f32 AO-factor block
-    n_spheres, bounces, n_draws, with_indices=False, **statics,
+    tab_ref,                          # (14, S) sphere/material table
+    ox, oy, oz, dx, dy, dz,           # (BLOCK,) ray tiles
+    draws_ref,                        # (bounces * n_draws, BLOCK)
+    *out_refs,  # (BLOCK,) planes: inc3 alb3 nrm3, + scale3 dir3 early
+                # when the sky slot is on
+    n_spheres, bounces, n_draws, sky_idx, cfg: RenderConfig,
 ):
-    sv = _read_table(sph_ref, n_spheres)
-    draws = [draws_ref[j] for j in range(bounces * n_draws)]
-    if with_indices:
-        outs, idx_rec, aof_rec = _forward_body(
-            sv, ox[:], oy[:], oz[:], dx[:], dy[:], dz[:], draws,
-            n_spheres=n_spheres, bounces=bounces, n_draws=n_draws,
-            record=True, **statics,
-        )
-        if statics.get("use_ao"):
-            aof_ref = out_refs[-1]
-            idx_ref = out_refs[-2]
-            out_refs = out_refs[:-2]
-            for i in range(bounces):
-                aof_ref[i] = aof_rec[i]
-        else:
-            idx_ref = out_refs[-1]
-            out_refs = out_refs[:-1]
-        for i in range(bounces):
-            idx_ref[i] = idx_rec[i]
-    else:
-        outs = _forward_body(
-            sv, ox[:], oy[:], oz[:], dx[:], dy[:], dz[:], draws,
-            n_spheres=n_spheres, bounces=bounces, n_draws=n_draws,
-            **statics,
-        )
-    assert len(out_refs) == len(outs)
-    for ref, val in zip(out_refs, outs):
-        ref[:] = val
+    """Equirect sky (sky_idx >= 0): the kernel records, per ray, ONE
+    sky-hit slot — the unit hit direction, the throughput scale the
+    texel multiplies and an early-return flag — and
+    materials.texture.compose_sky fetches the texel outside. One slot is
+    exact under the reference's sky convention (the sky sphere is a pure
+    emitter with BLACK diffuse, main.c:331/347, enforced by
+    raytpu.config): the first sky interaction either returns early or
+    multiplies the throughput by the black diffuse, so every later sky
+    event contributes exactly zero."""
+    sky = sky_idx >= 0
+    ro = Vec3(ox[...], oy[...], oz[...])
+    rd = Vec3(dx[...], dy[...], dz[...])
+    shape = ro.x.shape
+    f0 = jnp.zeros(shape, jnp.float32)
+    f1 = jnp.ones(shape, jnp.float32)
+    z3 = Vec3(f0, f0, f0)
+    ao_scale = cfg.ao_emission_factor * cfg.ao_intensity if cfg.use_ao else 1.0
 
-
-def _bwd_kernel(
-    sph_ref,
-    ox, oy, oz, dx, dy, dz,
-    draws_ref,
-    *rest,        # g tiles (9, or 12 with sky: +scale3), then the outputs:
-                  # d_sph SMEM (14, S_pad) accumulator + 6 ray cotangent tiles
-    n_spheres, bounces, n_draws, **statics,
-):
-    """Backward megakernel: replay the forward *inside* the kernel and
-    run the machine-derived reverse sweep (``jax.vjp`` of
-    ``_forward_body``), entirely in VMEM. Sphere-table cotangents are
-    scalars (AD inserts the over-tile reductions) accumulated across
-    sequential grid steps in SMEM; ray cotangents are per-tile outputs
-    feeding the camera pullback outside the kernel.
-
-    DRAW cotangents are not computed: every use of a draw ends in a
-    stop_gradient'd winner selection or a discrete comparison (roulette
-    thresholds), so the scan path's d_draws are IDENTICALLY zero
-    (verified numerically on diffuse/AO/refraction/cutout scenes) — the
-    wrapper returns explicit zeros, and the kernel closes over draws as
-    constants, skipping ~bounces*3 cotangent tile writes and their AD
-    chains.
-
-    This replaces the scan-path pullback for sphere scenes
-    (integrator/render.py previously recomputed each sample through the
-    XLA scan during backward) — the BASELINE fwd+bwd metric's long pole.
-    """
-    sv = _read_table(sph_ref, n_spheres)
-    draws = [draws_ref[j] for j in range(bounces * n_draws)]
-    # with sky, 12 outputs are differentiable (9 base + the sky scale);
-    # the unit-direction and early-flag planes end in int casts/comparisons
-    # outside, so their cotangents are identically zero and the vjp'd
-    # body simply drops them
-    n_g = 12 if statics.get("sky_idx", -1) >= 0 else 9
-    g_refs = rest[:n_g]
-    d_sph, d_ox, d_oy, d_oz, d_dx, d_dy, d_dz = rest[n_g:]
-
-    def f(sv, rox, roy, roz, rdx, rdy, rdz):
-        outs = _forward_body(
-            sv, rox, roy, roz, rdx, rdy, rdz, draws,
-            n_spheres=n_spheres, bounces=bounces, n_draws=n_draws,
-            **statics,
-        )
-        return outs[:n_g]
-
-    _, vjp_fn = jax.vjp(
-        f, sv, ox[:], oy[:], oz[:], dx[:], dy[:], dz[:]
+    st0 = dict(
+        ro=ro, rd=rd, rc=Vec3(f1, f1, f1), inc=z3, alb=z3, nrm=z3,
+        active=f1, is_alpha=f0,       # masks carried as f32 0/1
+        alpha_depth=jnp.zeros(shape, jnp.int32), medium=f1,
     )
-    g = tuple(r[:] for r in g_refs)
-    dsv, gox, goy, goz, gdx, gdy, gdz = vjp_fn(g)
+    if sky:
+        st0.update(skl=z3, skd=z3, early=f0, slot=f0)
 
-    d_ox[:] = gox
-    d_oy[:] = goy
-    d_oz[:] = goz
-    d_dx[:] = gdx
-    d_dy[:] = gdy
-    d_dz[:] = gdz
+    def bounce(i, st):
+        ro, rd, rc = st["ro"], st["rd"], st["rc"]
+        active = st["active"] > 0.0
+        is_alpha = st["is_alpha"] > 0.0
+        alpha_depth = st["alpha_depth"]
+        draw = lambda k: draws_ref[n_draws * i + k]
 
-    first = pl.program_id(0) == 0
-    for k in range(14):
-        for s in range(n_spheres):
-            prev = jnp.where(first, 0.0, d_sph[k, s])
-            d_sph[k, s] = prev + dsv[k][s]
+        # ---- closest sphere (main.c:52-92) + winner data ------------
+        best, bidx = _closest(tab_ref, n_spheres, ro, rd, cfg.sphere_eps)
+        did_hit = bidx >= 0
+        p = ro + rd * jnp.where(did_hit, best, 0.0)
+        w = jnp.maximum(bidx, 0)
+        (cx, cy, cz, r, dfx, dfy, dfz, emx, emy, emz, estr, refl, alpha,
+         ior) = [jnp.where(did_hit, tab_ref[k, w], 0.0) for k in range(N_CHAN)]
+        df = Vec3(dfx, dfy, dfz)
+        em = Vec3(emx, emy, emz)
+        c = Vec3(cx, cy, cz)
+        if sky:
+            # the texel fetch runs outside (compose_sky); zero the
+            # placeholder emission so the in-kernel sums get nothing
+            sky_win = did_hit & (bidx == sky_idx)
+            em = Vec3.where(sky_win, z3, em)
+            sdir = (p - c) / jnp.where(r > 0.0, r, 1.0)
+        # outward normal normalize(p - c) (sphere.h:33,42); zero on a miss
+        n = Vec3.where(did_hit, (p - c).normalize(), z3)
 
+        # ---- AOV base cases (main.c:137-150) ------------------------
+        aov0 = active & (i == 0)
+        alb = Vec3.where(aov0, df, st["alb"])
+        nrm = Vec3.where(aov0, n, st["nrm"])
+        aov_alpha = active & (i == alpha_depth) & is_alpha
+        alb = Vec3.where(aov_alpha, Vec3.where(estr > 0.0, em, df), alb)
+        nrm = Vec3.where(aov_alpha, n, nrm)
+        is_alpha = is_alpha & ~aov_alpha
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n_spheres", "bounces", "sphere_eps", "alpha_lo", "alpha_hi",
-        "bright_boost", "bright_threshold", "n_draws", "use_ao",
-        "ao_samples", "ao_intensity", "ao_emission_factor",
-        "hsl_l", "hsl_s", "sky_idx", "sky_w", "sky_h", "with_indices",
-        "interpret",
-    ),
-)
-def _trace_call(
-    sph, ox, oy, oz, dx, dy, dz, draws,
-    *, n_spheres, bounces, sphere_eps, alpha_lo, alpha_hi,
-    bright_boost, bright_threshold, n_draws, use_ao, ao_samples,
-    ao_intensity, ao_emission_factor, hsl_l, hsl_s,
-    sky_idx, sky_w, sky_h, with_indices, interpret,
-):
-    rows = ox.shape[0]
-    grid = (rows // ROWS,)
-    n_out = 16 if sky_idx >= 0 else 9
-    ray_spec = pl.BlockSpec(
-        (ROWS, LANE), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    draws_spec = pl.BlockSpec(
-        (draws.shape[0], ROWS, LANE),
-        lambda i: (0, i, 0),
-        memory_space=pltpu.VMEM,
-    )
-    kernel = functools.partial(
-        _kernel,
-        n_spheres=n_spheres, bounces=bounces, sphere_eps=sphere_eps,
-        alpha_lo=alpha_lo, alpha_hi=alpha_hi,
-        bright_boost=bright_boost, bright_threshold=bright_threshold,
-        n_draws=n_draws, use_ao=use_ao, ao_samples=ao_samples,
-        ao_intensity=ao_intensity, ao_emission_factor=ao_emission_factor,
-        hsl_l=hsl_l, hsl_s=hsl_s,
-        sky_idx=sky_idx, sky_w=sky_w, sky_h=sky_h,
-        with_indices=with_indices,
-    )
-    out_specs = [ray_spec] * n_out
-    out_shape = [jax.ShapeDtypeStruct((rows, LANE), jnp.float32)] * n_out
-    if with_indices:
-        bn_spec = pl.BlockSpec(
-            (bounces, ROWS, LANE), lambda i: (0, i, 0),
-            memory_space=pltpu.VMEM,
+        # ---- emissive early return + HSL boost (main.c:154-160) -----
+        emissive_ret = active & did_hit & (i == alpha_depth) & (estr > 0.0)
+        boosted = hsl_boost(em, cfg.hsl_l_factor, cfg.hsl_s_factor)
+        inc = Vec3.where(emissive_ret, boosted, st["inc"])
+        alb = Vec3.where(emissive_ret, boosted, alb)
+        nrm = Vec3.where(emissive_ret, n, nrm)
+        active = active & ~emissive_ret
+        live = active & did_hit
+
+        # ---- scatter (main.c:162-165) -------------------------------
+        diffuse_dir = (n + random_unit_vector(draw(0), draw(1))).normalize()
+        diff_ref = diffuse_dir.lerp(reflect(rd, n), refl)
+
+        # ---- refraction (main.c:167-193, reduced pile.h) ------------
+        refr_case = (
+            live & (alpha <= cfg.refr_alpha_hi) & (alpha >= cfg.refr_alpha_lo)
         )
-        out_specs.append(bn_spec)
-        out_shape.append(
-            jax.ShapeDtypeStruct((bounces, rows, LANE), jnp.int32)
-        )
-        if use_ao:
-            out_specs.append(bn_spec)
-            out_shape.append(
-                jax.ShapeDtypeStruct((bounces, rows, LANE), jnp.float32)
+        exiting = rd.dot(n) > 0.0
+        ne = Vec3.where(exiting, -n, n)
+        medium = st["medium"]
+        n1 = jnp.where(exiting, ior, medium)
+        n2 = jnp.where(exiting, medium, ior)
+        medium = jnp.where(refr_case & ~exiting, ior, medium)
+        refr_dir = refract(rd, ne, n1, n2)
+        do_refract = refr_case & (draw(2) > alpha)
+
+        # ---- opaque / cutout (main.c:195-206) -----------------------
+        cutout = live & (alpha < cfg.refr_alpha_lo)
+        opaque = live & (alpha > cfg.refr_alpha_hi)
+        is_alpha = jnp.where(opaque, False, is_alpha)
+        is_alpha = jnp.where(cutout, True, is_alpha)
+        alpha_depth = jnp.where(cutout, alpha_depth + 1, alpha_depth)
+        use_dr = live & ~do_refract & ~cutout
+        ro_new = Vec3.where(live, p, ro)
+        rd_new = Vec3.where(do_refract, refr_dir, Vec3.where(use_dr, diff_ref, rd))
+
+        # ---- accumulate (main.c:208-234) ----------------------------
+        accum = live & ~do_refract & ~cutout
+        e_scale = estr * ao_scale
+        new = dict()
+        if sky:
+            # the first sky interaction takes the slot: an early return
+            # (scale 1, boosted outside) or an accumulation (scale =
+            # e_scale * rc, what the zeroed placeholder would have had)
+            free = st["slot"] == 0.0
+            take_e = emissive_ret & sky_win & free
+            take_a = accum & sky_win & free
+            take = take_e | take_a
+            sc = rc * e_scale
+            new["skl"] = Vec3.where(
+                take_e, Vec3(f1, f1, f1), Vec3.where(take_a, sc, st["skl"])
             )
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-        + [ray_spec] * 6
-        + [draws_spec],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(sph, ox, oy, oz, dx, dy, dz, draws)
-    return out
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n_spheres", "bounces", "sphere_eps", "alpha_lo", "alpha_hi",
-        "bright_boost", "bright_threshold", "n_draws", "use_ao",
-        "ao_samples", "ao_intensity", "ao_emission_factor",
-        "hsl_l", "hsl_s", "sky_idx", "sky_w", "sky_h", "interpret",
-    ),
-)
-def _bwd_call(
-    sph, ox, oy, oz, dx, dy, dz, draws, g9,
-    *, n_spheres, bounces, sphere_eps, alpha_lo, alpha_hi,
-    bright_boost, bright_threshold, n_draws, use_ao, ao_samples,
-    ao_intensity, ao_emission_factor, hsl_l, hsl_s,
-    sky_idx, sky_w, sky_h, interpret,
-):
-    rows = ox.shape[0]
-    grid = (rows // BWD_ROWS,)
-    n_g = len(g9)
-    ray_spec = pl.BlockSpec(
-        (BWD_ROWS, LANE), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    draws_spec = pl.BlockSpec(
-        (draws.shape[0], BWD_ROWS, LANE),
-        lambda i: (0, i, 0),
-        memory_space=pltpu.VMEM,
-    )
-    # d_sph: one (14, S_pad) SMEM block revisited by every grid step —
-    # sequential TPU grids make the += accumulation race-free
-    dsph_spec = pl.BlockSpec(
-        sph.shape, lambda i: (0, 0), memory_space=pltpu.SMEM
-    )
-    kernel = functools.partial(
-        _bwd_kernel,
-        n_spheres=n_spheres, bounces=bounces, sphere_eps=sphere_eps,
-        alpha_lo=alpha_lo, alpha_hi=alpha_hi,
-        bright_boost=bright_boost, bright_threshold=bright_threshold,
-        n_draws=n_draws, use_ao=use_ao, ao_samples=ao_samples,
-        ao_intensity=ao_intensity, ao_emission_factor=ao_emission_factor,
-        hsl_l=hsl_l, hsl_s=hsl_s,
-        sky_idx=sky_idx, sky_w=sky_w, sky_h=sky_h,
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-        + [ray_spec] * 6
-        + [draws_spec]
-        + [ray_spec] * n_g,
-        out_specs=[dsph_spec] + [ray_spec] * 6,
-        out_shape=[jax.ShapeDtypeStruct(sph.shape, jnp.float32)]
-        + [jax.ShapeDtypeStruct((rows, LANE), jnp.float32)] * 6,
-        interpret=interpret,
-    )(sph, ox, oy, oz, dx, dy, dz, draws, *g9)
-    return out
-
-
-def supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """The megakernel covers every sphere-scene configuration (AO, DoF,
-    HSL boost, refraction, cutout, equirect sky) up to 64 spheres;
-    triangle scenes take the mesh kernel or the scan path."""
-    return (
-        scene.triangles.count == 0
-        and 0 < scene.spheres.count <= 64
-        and (
-            scene.sky_sphere_index < 0
-            or scene.sky_sphere_index < scene.spheres.count
+            new["skd"] = Vec3.where(take, sdir, st["skd"])
+            new["early"] = jnp.where(take_e, f1, st["early"])
+            new["slot"] = jnp.where(take, f1, st["slot"])
+        inc = Vec3.where(accum, inc + em * e_scale * rc, inc)
+        t = cfg.bright_threshold
+        bright = (rc.x > t) | (rc.y > t) | (rc.z > t)
+        rc_new = Vec3.where(
+            bright, df * (df * (rc * cfg.bright_boost)), df * rc
         )
+        if cfg.use_ao:
+            # hemisphere occlusion probes (main.c:94-116)
+            occ = f0
+            for s in range(cfg.ao_samples):
+                k = 3 + 2 * s
+                ao_dir = (n + random_unit_vector(draw(k), draw(k + 1))).normalize()
+                _, occ_idx = _closest(tab_ref, n_spheres, p, ao_dir, cfg.sphere_eps)
+                occ = occ + jnp.where(occ_idx >= 0, 1.0, 0.0)
+            rc_new = rc_new * (occ / (cfg.ao_samples * cfg.ao_intensity))
+        rc = Vec3.where(accum, rc_new, rc)
+
+        new.update(
+            ro=ro_new, rd=rd_new, rc=rc, inc=inc, alb=alb, nrm=nrm,
+            active=jnp.where(active & did_hit, f1, f0),
+            is_alpha=jnp.where(is_alpha, f1, f0),
+            alpha_depth=alpha_depth, medium=medium,
+        )
+        return new
+
+    st = lax.fori_loop(0, bounces, bounce, st0)
+    outs = [*st["inc"], *st["alb"], *st["nrm"]]
+    if sky:
+        outs += [*st["skl"], *st["skd"], st["early"]]
+    for ref, val in zip(out_refs, outs, strict=True):
+        ref[...] = val
+
+
+def _trace_call(tab, rays, draws, *, n_spheres, bounces, n_draws, sky_idx,
+                cfg, interpret):
+    n = rays[0].shape[0]
+    n_out = 16 if sky_idx >= 0 else 9
+    ray_spec = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    kernel = functools.partial(
+        _kernel, n_spheres=n_spheres, bounces=bounces, n_draws=n_draws,
+        sky_idx=sky_idx, cfg=cfg,
     )
+    return pl.pallas_call(
+        kernel,
+        grid=(n // BLOCK,),
+        in_specs=[pl.BlockSpec(tab.shape, lambda i: (0, 0))]
+        + [ray_spec] * 6
+        + [pl.BlockSpec((draws.shape[0], BLOCK), lambda i: (0, i))],
+        out_specs=[ray_spec] * n_out,
+        out_shape=[jax.ShapeDtypeStruct((n,), jnp.float32)] * n_out,
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS),
+        backend="triton",
+        interpret=interpret,
+        name="trace_spheres",
+    )(tab, *rays, draws)
 
 
-def unsupported_reasons(scene: Scene, cfg: RenderConfig) -> list[str]:
-    """Human-readable failed gates, kept in sync with supported() above —
-    surfaced by render()'s fallback log (a silent drop to the scan path
-    costs up to ~6x throughput; VERDICT r2 weak #7)."""
+def supported(scene: Scene) -> bool:
+    """Sphere-only scenes of up to MAX_SPHERES spheres (AO, DoF, HSL
+    boost, refraction, cutout and the equirect sky included)."""
+    return not unsupported_reasons(scene)
+
+
+def unsupported_reasons(scene: Scene) -> list[str]:
+    """Why ``supported`` fails, for render()'s one-line log."""
     r = []
     if scene.triangles.count != 0:
-        r.append("scene has triangles (mesh kernel territory)")
+        r.append("scene has triangles")
     if scene.spheres.count == 0:
         r.append("no spheres")
-    if scene.spheres.count > 64:
-        r.append(f"{scene.spheres.count} spheres > 64")
+    if scene.spheres.count > MAX_SPHERES:
+        r.append(f"{scene.spheres.count} spheres > {MAX_SPHERES}")
     if scene.sky_sphere_index >= scene.spheres.count:
         r.append("sky_sphere_index out of range")
     return r
 
 
-def _sky_statics(scene: Scene) -> dict:
-    """Static sky parameters for the kernel; sky_idx -1 disables the sky
-    slot entirely (the 9-output fast path, compiled out)."""
+def _sky_idx(scene: Scene) -> int:
+    """Index of the textured sky sphere, or -1 (sky slot compiled out)."""
     on = scene.sky_sphere_index >= 0 and scene.sky.rgb.x.shape[0] > 0
-    return dict(
-        sky_idx=scene.sky_sphere_index if on else -1,
-        sky_w=scene.sky.width if on else 0,
-        sky_h=scene.sky.height if on else 0,
-    )
+    return scene.sky_sphere_index if on else -1
 
 
-# the sphere megakernel carries its own hand-structured backward kernel;
-# render() may differentiate straight through it (no scan recompute)
-HAS_VJP = True
-
-
-def _pack_inputs(scene: Scene, origin: Vec3, direction: Vec3,
-                 bounce_draws: Array, rows_mult: int):
+def _forward(scene, cfg, origin, direction, bounce_draws, interpret):
+    """Pad the ray batch to a multiple of BLOCK, run the kernel, unpad.
+    Returns the 9 (or, with the sky slot, 16) output planes."""
     b = origin.x.shape[0]
-    rows = max(-(-b // LANE), rows_mult)
-    rows = -(-rows // rows_mult) * rows_mult
-
-    ox, oy, oz = (_pad_rows(c, rows) for c in origin)
-    dx, dy, dz = (_pad_rows(c, rows) for c in direction)
-
-    n_s = scene.spheres.count
-    s_pad = max(-(-n_s // LANE) * LANE, LANE)
+    pad = -b % BLOCK
+    rays = [jnp.pad(c, (0, pad)) for c in (*origin, *direction)]
     m = scene.spheres.mat
-    sph = jnp.stack(
-        [
-            jnp.pad(c, (0, s_pad - n_s))
-            for c in (
-                scene.spheres.center.x, scene.spheres.center.y,
-                scene.spheres.center.z, scene.spheres.radius,
-                m.diffuse.x, m.diffuse.y, m.diffuse.z,
-                m.emission.x, m.emission.y, m.emission.z,
-                m.emission_strength, m.reflection, m.alpha, m.ior,
-            )
-        ]
+    tab = jnp.stack([
+        *scene.spheres.center, scene.spheres.radius,
+        *m.diffuse, *m.emission, m.emission_strength, m.reflection,
+        m.alpha, m.ior,
+    ])
+    bn, nd = bounce_draws.shape[:2]
+    draws = jnp.pad(bounce_draws.reshape(bn * nd, b), ((0, 0), (0, pad)))
+    out = _trace_call(
+        tab, rays, draws, n_spheres=scene.spheres.count, bounces=bn,
+        n_draws=nd, sky_idx=_sky_idx(scene), cfg=cfg, interpret=interpret,
     )
-
-    # draws (bounces, n_draws, B) -> (bounces*n_draws, rows, 128)
-    bn, nd = bounce_draws.shape[0], bounce_draws.shape[1]
-    draws = bounce_draws.reshape(bn * nd, b)
-    draws = jnp.pad(draws, ((0, 0), (0, rows * LANE - b))).reshape(
-        bn * nd, rows, LANE
-    )
-    return sph, ox, oy, oz, dx, dy, dz, draws, nd
+    return [o[:b] for o in out]
 
 
-def _statics(cfg: RenderConfig, nd: int) -> dict:
-    return dict(
-        bounces=cfg.max_bounces, sphere_eps=cfg.sphere_eps,
-        alpha_lo=cfg.refr_alpha_lo, alpha_hi=cfg.refr_alpha_hi,
-        bright_boost=cfg.bright_boost,
-        bright_threshold=cfg.bright_threshold,
-        n_draws=nd, use_ao=cfg.use_ao, ao_samples=cfg.ao_samples,
-        ao_intensity=cfg.ao_intensity,
-        ao_emission_factor=cfg.ao_emission_factor,
-        hsl_l=cfg.hsl_l_factor, hsl_s=cfg.hsl_s_factor,
-    )
+def _compose(scene, cfg, planes):
+    """Output planes -> (radiance, albedo, normal), fetching the sky
+    texel outside the kernel when the sky slot is on."""
+    from raytpu.materials.texture import compose_sky
+
+    v = [Vec3(*planes[k : k + 3]) for k in range(0, len(planes) - 1, 3)]
+    if len(planes) == 9:
+        return v[0], v[1], v[2]
+    return compose_sky(scene, cfg, (v[0], v[1], v[2], v[3], v[4], planes[15]))
 
 
 def trace_megakernel(
@@ -748,213 +310,8 @@ def trace_megakernel(
     bounce_draws: Array,
     interpret: bool = False,
 ) -> tuple[Vec3, Vec3, Vec3]:
-    """Drop-in for integrator.path.trace on supported configurations.
-
-    Differentiable: ``jax.grad`` through this call runs the hand-
-    structured backward megakernel (``_bwd_kernel``) instead of
-    rematerializing the sample through the XLA scan path.
-
-    Equirect sky scenes: the kernel records one sky-hit slot per ray
-    (texel index + throughput scale, see _forward_body) and the radiance
-    is composed HERE, outside the kernel's custom-VJP boundary, with one
-    XLA row-gather over the full-resolution sky texture — so sky-texture
-    gradients ride the gather's own VJP while everything else stays in
-    the kernel's hand-structured backward.
-    """
-    out = _mk_vjp(scene, cfg, origin, direction, bounce_draws, interpret)
-    if _sky_statics(scene)["sky_idx"] < 0:
-        return out
-    return compose_sky(scene, cfg, out)
-
-
-def compose_sky(scene: Scene, cfg: RenderConfig, out6):
-    """Slot -> radiance composition, shared with the mesh megakernel
-    (kernels/trace_scene). ``out6`` = (inc, alb, nrm, scale Vec3,
-    unit-direction Vec3, early flag). The UV chain is op-for-op
-    materials.texture.sky_emission (acos/atan2/floor — ops Mosaic cannot
-    lower, which is why the kernel records the direction, not the
-    texel), so texel indices are bit-identical to the scan path. Miss
-    lanes carry direction (0,0,0): they gather SOME texel but their
-    scale and early flag are 0, so the value is discarded exactly."""
-    from raytpu.core.color import hsl_boost
-    from raytpu.core.gather import gather_channels
-
-    from raytpu.materials.texture import sky_texel_index
-
-    inc, alb, nrm, skl, sdir, early_p = out6
-    idx = sky_texel_index(sdir, scene.sky.width, scene.sky.height)
-    if not cfg.sky_texture_grads:
-        from raytpu.core.gather import take_packed_rgba
-
-        # gradients stop at the texels either way (matches the scan
-        # path's stop_gradient in integrator/hit.py)
-        sr = jax.lax.stop_gradient(scene.sky.rgb.x)
-        sg_ = jax.lax.stop_gradient(scene.sky.rgb.y)
-        sb = jax.lax.stop_gradient(scene.sky.rgb.z)
-        if scene.sky.packed is not None:
-            # fast path: u8-packed row-gather (bit-identical values, a
-            # quarter of the bytes — SkyTexture.packed)
-            r, g, b, _ = take_packed_rgba(
-                sr, sg_, sb, sr, scene.sky.packed, idx,
-            )
-        else:
-            # training path: combine_scene dropped the packed twin so a
-            # stale table can never be rendered; rebuild it in-graph
-            # from the LIVE rgb (pack_rgba_u8_traced) — unmutated
-            # u8-exact skies keep the fast fetch bit-exactly, mutated
-            # ones fail the exactness check and lax.cond takes the f32
-            # gather (VERDICT r4 next #3; tests/test_sky.py).
-            from raytpu.core.gather import pack_rgba_u8_traced
-
-            packed, valid = pack_rgba_u8_traced(sr, sg_, sb, sr)
-
-            def _fast(_):
-                r, g, b, _a = take_packed_rgba(
-                    sr, sg_, sb, sr, packed, idx
-                )
-                return r, g, b
-
-            def _slow(_):
-                return tuple(gather_channels([sr, sg_, sb], idx))
-
-            r, g, b = jax.lax.cond(valid, _fast, _slow, 0)
-    else:
-        r, g, b = gather_channels(
-            [scene.sky.rgb.x, scene.sky.rgb.y, scene.sky.rgb.z], idx
-        )
-    sky_rgb = Vec3(r, g, b)
-    early = early_p > 0.0
-    boosted = hsl_boost(sky_rgb, cfg.hsl_l_factor, cfg.hsl_s_factor)
-    inc = Vec3.where(early, boosted, inc + sky_rgb * skl)
-    alb = Vec3.where(early, boosted, alb)
-    return inc, alb, nrm
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1, 5))
-def _mk_vjp(scene, cfg, origin, direction, bounce_draws, interpret):
-    return _mk_forward(scene, cfg, origin, direction, bounce_draws, interpret)
-
-
-def _mk_forward(scene, cfg, origin, direction, bounce_draws, interpret,
-                with_indices=False):
-    b = origin.x.shape[0]
-    sph, ox, oy, oz, dx, dy, dz, draws, nd = _pack_inputs(
-        scene, origin, direction, bounce_draws, ROWS
-    )
-    out = _trace_call(
-        sph, ox, oy, oz, dx, dy, dz, draws,
-        n_spheres=scene.spheres.count, interpret=interpret,
-        with_indices=with_indices,
-        **_statics(cfg, nd), **_sky_statics(scene),
-    )
-    bn = bounce_draws.shape[0]
-    idx = aof = None
-    if with_indices:
-        if cfg.use_ao:
-            aof = out[-1].reshape(bn, -1)[:, :b]
-            idx = out[-2].reshape(bn, -1)[:, :b]
-            out = out[:-2]
-        else:
-            idx = out[-1].reshape(bn, -1)[:, :b]
-            out = out[:-1]
-    flat = [o.reshape(-1)[:b] for o in out]
-    base = (
-        Vec3(flat[0], flat[1], flat[2]),
-        Vec3(flat[3], flat[4], flat[5]),
-        Vec3(flat[6], flat[7], flat[8]),
-    )
-    if len(out) != 9:
-        base = base + (
-            Vec3(flat[9], flat[10], flat[11]),   # sky scale
-            Vec3(flat[12], flat[13], flat[14]),  # sky unit hit direction
-            flat[15],                            # early-return flag
-        )
-    if with_indices:
-        return base, idx, aof
-    return base
-
-
-def _mk_fwd(scene, cfg, origin, direction, bounce_draws, interpret):
-    out, idx, aof = _mk_forward(
-        scene, cfg, origin, direction, bounce_draws, interpret,
-        with_indices=True,
-    )
-    return out, (scene, origin, direction, bounce_draws, idx, aof)
-
-
-def _zero_cot(x):
-    """Cotangent for an undifferentiated leaf: zeros for inexact dtypes,
-    float0 (the symbolic-zero tangent dtype custom_vjp expects) for
-    int/bool leaves."""
-    import numpy as np
-
-    if jnp.issubdtype(jnp.result_type(x), jnp.inexact):
-        return jnp.zeros_like(x)
-    return np.zeros(jnp.shape(x), jax.dtypes.float0)
-
-
-def _mk_bwd(cfg, interpret, res, g):
-    scene, origin, direction, bounce_draws, idx, aof = res
-    if _os.environ.get("RAYTPU_SPH_BWD", "replay") == "replay":
-        # round-5 default: the shared index-replay backward megakernel
-        # (kernels/trace_scene_bwd with n_tris == 0) — the sphere search
-        # and the AO probe loops never run again; the replay
-        # reconstructs each bounce's winner from the recorded index by
-        # one one-hot MXU extraction and re-shades differentiably.
-        # RAYTPU_SPH_BWD=ad keeps the old AD-of-the-forward kernel as a
-        # debugging fallback.
-        from raytpu.kernels.trace_scene_bwd import mesh_backward
-
-        g_vecs = list(g[:4] if len(g) > 3 else g[:3])
-        return mesh_backward(
-            scene, cfg, origin, direction, bounce_draws, idx, g_vecs,
-            interpret, aof=aof,
-        )
-    b = origin.x.shape[0]
-    n_s = scene.spheres.count
-
-    sph, ox, oy, oz, dx, dy, dz, draws, nd = _pack_inputs(
-        scene, origin, direction, bounce_draws, BWD_ROWS
-    )
-    rows = ox.shape[0]
-    # cotangent tiles: 3 base Vec3s, + the sky-scale Vec3 when the sky
-    # slot is on (the unit-direction/early-flag planes only feed the
-    # floor-quantized texel index and comparisons outside, so their
-    # cotangents are identically zero and are dropped here)
-    g_vecs = g[:4] if len(g) > 3 else g[:3]
-    g9 = [
-        _pad_rows(c, rows)
-        for vec in g_vecs for c in (vec.x, vec.y, vec.z)
-    ]
-    out = _bwd_call(
-        sph, ox, oy, oz, dx, dy, dz, draws, g9,
-        n_spheres=n_s, interpret=interpret, **_statics(cfg, nd),
-        **_sky_statics(scene),
-    )
-    d_sph = out[0]
-    d_rays = [o.reshape(-1)[:b] for o in out[1:7]]
-    # draw cotangents are structurally zero (see _bwd_kernel docstring);
-    # return explicit zeros instead of computing them in-kernel
-    d_draws = jnp.zeros_like(bounce_draws)
-
-    row = lambda k: d_sph[k, :n_s]
-    d_mat = Materials(
-        diffuse=Vec3(row(4), row(5), row(6)),
-        emission=Vec3(row(7), row(8), row(9)),
-        emission_strength=row(10), reflection=row(11),
-        alpha=row(12), ior=row(13),
-    )
-    d_spheres = Spheres(
-        center=Vec3(row(0), row(1), row(2)), radius=row(3), mat=d_mat
-    )
-    d_scene = jax.tree_util.tree_map(_zero_cot, scene)
-    d_scene = d_scene.replace(spheres=d_spheres)
-    return (
-        d_scene,
-        Vec3(d_rays[0], d_rays[1], d_rays[2]),
-        Vec3(d_rays[3], d_rays[4], d_rays[5]),
-        d_draws,
-    )
-
-
-_mk_vjp.defvjp(_mk_fwd, _mk_bwd)
+    """Drop-in for integrator.path.trace on ``supported`` scenes (forward
+    only). ``interpret=True`` runs the kernel in the Pallas interpreter
+    (CPU tests)."""
+    planes = _forward(scene, cfg, origin, direction, bounce_draws, interpret)
+    return _compose(scene, cfg, planes)

@@ -10,6 +10,7 @@ scene's MatTable).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 from jax import Array
 
@@ -143,8 +144,7 @@ def triangle_material(
         rgb = Vec3.full(mat_id.shape, 0.784, 0.965, 1.0)
         tex_alpha = jnp.ones(mat_id.shape, jnp.float32)
 
-    # ONE row-gather for all 8-9 material-table channels (separate
-    # per-channel takes cost ~0.5-2.4ns/ray each on TPU)
+    # ONE row-gather for all 8-9 material-table channels
     t_chans = [
         table.emission.x, table.emission.y, table.emission.z,
         table.emission_strength, table.reflection, table.ior,
@@ -188,9 +188,8 @@ def sky_texel_index(d: Vec3, w: int, h: int) -> Array:
     u = phi/2pi, v = theta/pi; nearest texel.
 
     THE single copy of the UV chain: the scan path (sky_emission) and
-    both megakernels' outside composition (trace_spheres.compose_sky)
-    call it, which is what makes their texel indices bit-identical —
-    do not fork it."""
+    the megakernel's outside composition (compose_sky) call it, which is
+    what makes their texel indices bit-identical — do not fork it."""
     theta = jnp.arccos(jnp.clip(-d.y, -1.0, 1.0))
     phi = jnp.arctan2(-d.z, d.x) + jnp.pi
     u = phi / (2.0 * jnp.pi)
@@ -221,3 +220,51 @@ def sky_emission(
         )
         return Vec3(r, g, b)
     return sky.rgb.take(idx)
+
+
+def compose_sky(scene, cfg, out6) -> tuple[Vec3, Vec3, Vec3]:
+    """Sky-slot composition for the sphere megakernel
+    (kernels/trace_spheres), whose kernel records the sky hit instead of
+    fetching the texel. ``out6`` = (inc, alb, nrm, scale Vec3, unit hit
+    direction Vec3, early flag). The UV chain is sky_texel_index, so
+    texel indices are bit-identical to the scan path's sky_emission.
+    Miss lanes carry direction (0,0,0): they gather SOME texel but their
+    scale and early flag are 0, so the value is discarded exactly."""
+    from raytpu.core.color import hsl_boost
+    from raytpu.core.gather import pack_rgba_u8_traced
+
+    inc, alb, nrm, skl, sdir, early_p = out6
+    sky = scene.sky
+    idx = sky_texel_index(sdir, sky.width, sky.height)
+    if not cfg.sky_texture_grads:
+        # gradients stop at the texels (the scan path's stop_gradient in
+        # integrator/hit.py)
+        sr, sg_, sb = (jax.lax.stop_gradient(c) for c in sky.rgb)
+        if sky.packed is not None:
+            # u8-packed fetch: bit-identical values at a quarter of the
+            # bytes (SkyTexture.packed)
+            r, g, b, _ = take_packed_rgba(sr, sg_, sb, sr, sky.packed, idx)
+        else:
+            # training path: combine_scene dropped the packed twin so a
+            # stale table can never be rendered; rebuild it in-graph from
+            # the LIVE rgb — unmutated u8-exact skies keep the packed
+            # fetch bit-exactly, mutated ones fail the exactness check
+            # and lax.cond takes the f32 gather (tests/test_sky.py).
+            packed, valid = pack_rgba_u8_traced(sr, sg_, sb, sr)
+
+            def _fast(_):
+                r, g, b, _a = take_packed_rgba(sr, sg_, sb, sr, packed, idx)
+                return r, g, b
+
+            def _slow(_):
+                return tuple(gather_channels([sr, sg_, sb], idx))
+
+            r, g, b = jax.lax.cond(valid, _fast, _slow, 0)
+    else:
+        r, g, b = gather_channels(list(sky.rgb), idx)
+    sky_rgb = Vec3(r, g, b)
+    early = early_p > 0.0
+    boosted = hsl_boost(sky_rgb, cfg.hsl_l_factor, cfg.hsl_s_factor)
+    inc = Vec3.where(early, boosted, inc + sky_rgb * skl)
+    alb = Vec3.where(early, boosted, alb)
+    return inc, alb, nrm

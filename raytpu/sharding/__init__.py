@@ -6,7 +6,7 @@ The reference parallelizes over pixels only: pthread row slabs on CPU
 in both, and there is no multi-device or multi-node path at all
 (SURVEY.md §2 "Parallelism strategies").
 
-TPU-native generalization: a 2-axis ``jax.sharding.Mesh``
+Generalization: a 2-axis ``jax.sharding.Mesh``
 (``('tiles', 'samples')``). Pixels are sharded over ``tiles`` (the
 renderer's data-parallel axis — disjoint outputs, no communication,
 like the pthread slabs but load-balanced by construction since every
@@ -14,7 +14,7 @@ pixel costs the same fixed-depth scan). Samples are sharded over
 ``samples``: each device renders the *same* pixels at ``spp / n``
 samples using disjoint global sample indices, and the radiance sums are
 combined with one ``psum`` over the axis — the renderer's analog of a
-data-parallel gradient all-reduce, riding ICI within a slice. Because
+data-parallel gradient all-reduce. Because
 RNG keys are derived from (pixel_id, global_sample_id)
 (raytpu.core.rng), every mesh factorization computes exactly the same
 per-sample terms as a single device; the sums agree up to f32

@@ -60,3 +60,53 @@ def test_identity_when_sigmas_tiny():
     )
     out = np.asarray(denoise(c, a, n, p))
     np.testing.assert_allclose(out, np.asarray(c), atol=1e-5)
+
+
+def test_kpcn_matches_numpy_convolution():
+    """The shipped KPCN weights through kpcn() vs a plain numpy forward
+    pass: zero-padded 3x3 cross-correlations with ReLU, a softmax over
+    the 49 kernel logits and the renormalized 7x7 window sum."""
+    from raytpu.denoise.learned import RADIUS, load_params, kpcn
+
+    params = load_params()
+    rng = np.random.default_rng(3)
+    h, w = 9, 11
+    color = rng.random((h, w, 3), np.float32) * 2.0
+    albedo = rng.random((h, w, 3), np.float32)
+    normal = rng.normal(size=(h, w, 3)).astype(np.float32)
+    got = np.asarray(kpcn(params, jnp.asarray(color), jnp.asarray(albedo),
+                          jnp.asarray(normal)))
+
+    def conv(x, k, b):
+        xp = np.pad(x, ((1, 1), (1, 1), (0, 0)))
+        out = np.zeros((h, w, k.shape[-1]))
+        for dy in range(3):
+            for dx in range(3):
+                out += xp[dy : dy + h, dx : dx + w] @ k[dy, dx]
+        return out + b
+
+    layers = params["params"]
+    x = np.concatenate([np.log1p(np.maximum(color, 0)), albedo, normal], -1)
+    x = x.astype(np.float64)
+    n = len(layers)
+    for i in range(n):
+        k = np.asarray(layers[f"Conv_{i}"]["kernel"], np.float64)
+        x = conv(x, k, np.asarray(layers[f"Conv_{i}"]["bias"], np.float64))
+        if i < n - 1:
+            x = np.maximum(x, 0.0)
+    e = np.exp(x - x.max(-1, keepdims=True))
+    wts = e / e.sum(-1, keepdims=True)
+    num = np.zeros((h, w, 3))
+    den = np.zeros((h, w, 1))
+    tap = 0
+    for dy in range(-RADIUS, RADIUS + 1):
+        for dx in range(-RADIUS, RADIUS + 1):
+            for y in range(h):
+                for xx in range(w):
+                    sy, sx = y - dy, xx - dx
+                    if 0 <= sy < h and 0 <= sx < w:
+                        num[y, xx] += wts[y, xx, tap] * color[sy, sx]
+                        den[y, xx] += wts[y, xx, tap]
+            tap += 1
+    want = num / np.maximum(den, 1e-8)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)

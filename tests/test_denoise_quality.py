@@ -32,7 +32,7 @@ def test_metric_sanity():
 
 def _pair_for(scene, cam, cfg):
     cfg = cfg.replace(width=48, height=36, spp=1, max_bounces=4,
-                      pixel_tile=48 * 36, use_megakernel=False)
+                      pixel_tile=48 * 36)
     return render_pair(scene, cam, cfg, jax.random.PRNGKey(3),
                        spp_lo=4, spp_hi=160)
 

@@ -1,4 +1,4 @@
-"""Unit tests for the TPU-fast gather layouts (core/gather.py): all
+"""Unit tests for the gather layouts (core/gather.py): all
 three size regimes must agree with plain numpy indexing, forward and
 backward."""
 

@@ -2,8 +2,7 @@
 CPU processes with 4 virtual devices each form one 8-device
 ('tiles','samples') mesh; the distributed render must agree with the
 single-process 8-device render (same per-(pixel, sample) RNG terms —
-SURVEY.md §5.8, BASELINE's >= 85% multi-host scaling north star needs
-this wiring before efficiency can even be measured)."""
+SURVEY.md §5.8)."""
 
 import os
 import socket
@@ -79,7 +78,7 @@ def test_init_distributed_noop_without_config(monkeypatch):
     """No coordinator configured anywhere -> stays single-process and
     returns False (the CLI calls this unconditionally)."""
     for k in ("RAYTPU_COORDINATOR", "RAYTPU_NUM_PROCESSES",
-              "RAYTPU_PROCESS_ID", "TPU_WORKER_HOSTNAMES"):
+              "RAYTPU_PROCESS_ID"):
         monkeypatch.delenv(k, raising=False)
     from raytpu.sharding import init_distributed
 

@@ -43,3 +43,19 @@ def test_preview_write(tmp_path):
 def test_trace_profile_noop():
     with trace_profile(None):
         pass  # must not require jax import side effects
+
+
+def test_compilation_cache_dir(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the cache lives
+    in the checkout's .jax_cache, which .gitignore lists."""
+    import os
+
+    from raytpu.observe import compilation_cache_dir
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/somewhere/cache")
+    assert compilation_cache_dir() == "/somewhere/cache"
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert compilation_cache_dir() == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()

@@ -11,12 +11,9 @@ most stressed — three nested media, 19 bounces:
   * oracle agreement: the f64 oracle (tests/oracle.py) keeps the REAL
     linked-list stack, so agreement at depth 19 is an independent check
     of the reduction, not a self-comparison.
-  * megakernel bit-identity + gradient parity at max_bounces=19: the
-    sphere backward kernel's BWD_ROWS=8 tile was chosen with "headroom
-    for deep-bounce configs" (kernels/trace_spheres.py:43-47) — these
-    runs are that claim's regression test (in interpret mode here; the
-    compiled 19-bounce fwd+bwd is exercised on TPU by
-    tools/probe_deep_bounce.py and the bench record).
+  * megakernel agreement + gradient parity at max_bounces=19 (the
+    kernel in the Pallas interpreter here; chip_smoke.py compares the
+    compiled kernel at 19 bounces on the card).
 """
 
 import jax
@@ -60,19 +57,16 @@ def test_refraction_stack_matches_oracle_at_19_bounces():
 
 @pytest.mark.kernel
 def test_refraction_stack_kernel_matches_scan_at_19_bounces():
-    """Sphere megakernel bit-identity at the deep-bounce depth."""
+    """Sphere megakernel agreement at the deep-bounce depth."""
     from raytpu.kernels.trace_spheres import supported
 
     scene, cam, cfg = load_scene("scenes/refraction_stack.toml")
     cfg = _small_cfg(cfg)
-    assert supported(scene, cfg)
+    assert supported(scene)
     pids = jnp.arange(cfg.n_pixels, dtype=jnp.int32)
     key = jax.random.PRNGKey(78)
-    a = render(scene, cam, cfg, pids, key)
-    b = render(
-        scene, cam, cfg.replace(use_megakernel=True, pallas_interpret=True),
-        pids, key,
-    )
+    a = render(scene, cam, cfg, pids, key, _route="scan")
+    b = render(scene, cam, cfg, pids, key, _route="kernel")
     for name in ("radiance", "albedo", "normal"):
         x = np.asarray(getattr(a, name).to_array())
         y = np.asarray(getattr(b, name).to_array())
@@ -82,36 +76,27 @@ def test_refraction_stack_kernel_matches_scan_at_19_bounces():
 
 @pytest.mark.slow
 def test_refraction_stack_kernel_grad_at_19_bounces():
-    """The backward megakernel at depth 19: grads through the 19-bounce
-    nested-media trace must match the scan path on sphere geometry AND
-    material leaves.
-
-    Marked slow: the sphere backward replay is a static 19-bounce unroll
-    and XLA:CPU's compile time on the unrolled vjp jaxpr is superlinear
-    (>15 min under the 8-virtual-device harness). The claim this guards —
-    BWD_ROWS=8 headroom at depth 19 — is a real-TPU VMEM property that
-    interpret mode cannot observe anyway; the COMPILED check runs on the
-    TPU rig via tools/probe_deep_bounce.py (kernel-vs-scan agreement,
-    grad parity, and fwd/fwd+bwd throughput, all at max_bounces=19)."""
+    """Grads through the kernel route at depth 19 must match the scan
+    path on sphere geometry AND material leaves. Marked slow: XLA:CPU
+    compiles the 19-bounce vjp slowly."""
     from raytpu.train import combine_scene, partition_scene
 
     scene, cam, cfg = load_scene("scenes/refraction_stack.toml")
-    cfg = _small_cfg(
-        cfg, spp=1, use_megakernel=True, pallas_interpret=True
-    )
+    cfg = _small_cfg(cfg, spp=1)
     pids = jnp.arange(cfg.n_pixels, dtype=jnp.int32)
     key = jax.random.PRNGKey(79)
     params, static = partition_scene(scene)
 
-    def loss(params, c):
-        sums = render(combine_scene(params, static), cam, c, pids, key)
+    def loss(params, route):
+        sums = render(combine_scene(params, static), cam, cfg, pids, key,
+                      _route=route)
         return (
             jnp.mean((sums.radiance.to_array() - 0.3) ** 2)
             + jnp.mean(sums.normal.to_array() ** 2)
         )
 
-    g_mk = jax.grad(loss)(params, cfg)
-    g_scan = jax.grad(loss)(params, cfg.replace(use_megakernel=False))
+    g_mk = jax.grad(loss)(params, "kernel")
+    g_scan = jax.grad(loss)(params, "scan")
     for name, a, b in (
         ("center.z", g_mk.spheres.center.z, g_scan.spheres.center.z),
         ("radius", g_mk.spheres.radius, g_scan.spheres.radius),

@@ -62,9 +62,9 @@ def test_sky_matches_oracle():
 @pytest.mark.kernel
 def test_sky_kernel_matches_scan():
     """The sphere megakernel's single-slot sky composition
-    (kernels/trace_spheres._forward_body docstring) vs the scan path:
-    same RNG, black-diffuse pure-emitter sky (the reference convention
-    the slot design is exact under)."""
+    (kernels/trace_spheres._kernel docstring) vs the scan path: same
+    RNG, black-diffuse pure-emitter sky (the reference convention the
+    slot design is exact under)."""
     from raytpu.camera import make_camera
     from raytpu.kernels.trace_spheres import supported
 
@@ -74,14 +74,11 @@ def test_sky_kernel_matches_scan():
         vfov_deg=60.0, aspect_ratio=1.5,
     )
     cfg = RenderConfig(width=12, height=8, spp=3, max_bounces=4)
-    assert supported(scene, cfg)
+    assert supported(scene)
     pids = jnp.arange(cfg.n_pixels, dtype=jnp.int32)
     key = jax.random.PRNGKey(32)
-    a = render(scene, cam, cfg, pids, key)
-    b = render(
-        scene, cam, cfg.replace(use_megakernel=True, pallas_interpret=True),
-        pids, key,
-    )
+    a = render(scene, cam, cfg, pids, key, _route="scan")
+    b = render(scene, cam, cfg, pids, key, _route="kernel")
     for name in ("radiance", "albedo", "normal"):
         x = np.asarray(getattr(a, name).to_array())
         y = np.asarray(getattr(b, name).to_array())
@@ -96,9 +93,8 @@ def test_sky_kernel_matches_scan():
 
 @pytest.mark.kernel
 def test_sky_kernel_grad_matches_scan():
-    """Sky-texture gradients ride the outside gather's VJP; throughput
-    cotangents (the sky-scale outputs) flow through the backward
-    megakernel. Both must match the scan path."""
+    """Sky-texture and sphere gradients through the kernel route's
+    derivative rule must match the scan path."""
     from raytpu.camera import make_camera
     from raytpu.train import combine_scene, partition_scene
 
@@ -108,20 +104,19 @@ def test_sky_kernel_grad_matches_scan():
         vfov_deg=60.0, aspect_ratio=1.5,
     )
     cfg = RenderConfig(
-        width=10, height=6, spp=2, max_bounces=3,
-        use_megakernel=True, pallas_interpret=True,
-        sky_texture_grads=True,
+        width=10, height=6, spp=2, max_bounces=3, sky_texture_grads=True,
     )
     pids = jnp.arange(cfg.n_pixels, dtype=jnp.int32)
     key = jax.random.PRNGKey(33)
     params, static = partition_scene(scene)
 
-    def loss(params, c):
-        sums = render(combine_scene(params, static), cam, c, pids, key)
+    def loss(params, route):
+        sums = render(combine_scene(params, static), cam, cfg, pids, key,
+                      _route=route)
         return jnp.mean((sums.radiance.to_array() - 0.2) ** 2)
 
-    g_mk = jax.grad(loss)(params, cfg)
-    g_scan = jax.grad(loss)(params, cfg.replace(use_megakernel=False))
+    g_mk = jax.grad(loss)(params, "kernel")
+    g_scan = jax.grad(loss)(params, "scan")
     checked = {
         "sky.rgb.x": (g_mk.sky.rgb.x, g_scan.sky.rgb.x),
         "sky.rgb.z": (g_mk.sky.rgb.z, g_scan.sky.rgb.z),
@@ -137,88 +132,6 @@ def test_sky_kernel_grad_matches_scan():
         )
         nonzero += bool(np.abs(np.asarray(b)).max() > 0)
     assert nonzero >= 3, f"only {nonzero} leaves had nonzero reference grads"
-
-
-@pytest.mark.kernel
-def test_mesh_sky_kernel_matches_scan():
-    """The MESH megakernel's sky slot (kernels/trace_scene.py, VERDICT
-    r3 missing #2): the reference's canonical scene shape — OBJ mesh +
-    equirect sky in one render (main.c:361 + 374) — must run on the
-    fast path and match the scan integrator."""
-    from raytpu.config import load_scene
-    from raytpu.kernels.trace_scene import supported
-
-    scene, cam, cfg = load_scene("scenes/mesh_sky.toml")
-    # merge_quads off: this test isolates the SKY slot path; the quad
-    # fast path is allclose-only (knife-edge winner flips) and has its
-    # own tests (test_quad_merge)
-    cfg = cfg.replace(width=12, height=8, spp=3, max_bounces=4,
-                      merge_quads=False)
-    assert scene.sky_sphere_index >= 0 and scene.triangles.count > 0
-    assert supported(scene, cfg), "mesh+sky must take the mesh megakernel"
-    pids = jnp.arange(cfg.n_pixels, dtype=jnp.int32)
-    key = jax.random.PRNGKey(34)
-    a = render(scene, cam, cfg, pids, key)
-    b = render(
-        scene, cam, cfg.replace(use_megakernel=True, pallas_interpret=True),
-        pids, key,
-    )
-    for name in ("radiance", "albedo", "normal"):
-        x = np.asarray(getattr(a, name).to_array())
-        y = np.asarray(getattr(b, name).to_array())
-        bad = (np.abs(x - y) > 1e-4 + 1e-5 * np.abs(x)).any(axis=-1)
-        assert bad.mean() <= 0.02, (
-            f"{name}: {bad.mean():.2%} pixels differ "
-            f"(max {np.abs(x - y).max():.4f})"
-        )
-    assert np.asarray(a.radiance.to_array()).std() > 0.01
-
-
-@pytest.mark.kernel
-def test_mesh_sky_kernel_grad_matches_scan():
-    """Mesh+sky gradients run the index-replay scan backward
-    (trace_scene._mkm_sky_bwd) whose closest_hit swaps the sky texel
-    into the winner's emission differentiably — every scene leaf's grad
-    must equal the pure-scan path's."""
-    from raytpu.config import load_scene
-    from raytpu.core import rng as rrng
-    from raytpu.integrator.path import n_bounce_draws, trace
-    from raytpu.integrator.render import sample_rays
-    from raytpu.kernels.trace_scene import trace_mesh_megakernel
-    from raytpu.train import combine_scene, partition_scene
-
-    scene, cam, cfg = load_scene("scenes/mesh_sky.toml")
-    cfg = cfg.replace(width=10, height=6, spp=1, max_bounces=3,
-                      merge_quads=False, sky_texture_grads=True)
-    pids = jnp.arange(cfg.n_pixels, dtype=jnp.int32)
-    pix_keys = rrng.pixel_keys(jax.random.PRNGKey(35), pids)
-    ray_keys = rrng.sample_keys(pix_keys, jnp.int32(0))
-    cam_draws, bounce_draws = rrng.ray_uniforms(
-        ray_keys, 4, n_bounce_draws(cfg), cfg.max_bounces
-    )
-    origin, direction = sample_rays(cam, cfg, pids, cam_draws)
-    params, static = partition_scene(scene)
-
-    def mk_loss(fn):
-        def loss(p):
-            s = combine_scene(p, static)
-            inc, alb, nrm = fn(s, cfg, origin, direction, bounce_draws)
-            return jnp.sum(inc.x + inc.y + inc.z) + jnp.sum(nrm.x)
-        return loss
-
-    g_mk = jax.grad(mk_loss(
-        lambda *a: trace_mesh_megakernel(*a, interpret=True)
-    ))(params)
-    g_scan = jax.grad(mk_loss(trace))(params)
-    import jax.tree_util as jtu
-
-    nonzero = 0
-    for lk, ls in zip(jtu.tree_leaves(g_mk), jtu.tree_leaves(g_scan)):
-        np.testing.assert_allclose(
-            np.asarray(lk), np.asarray(ls), rtol=1e-4, atol=1e-6
-        )
-        nonzero += bool(lk.size and np.abs(np.asarray(ls)).max() > 0)
-    assert nonzero >= 4, f"only {nonzero} leaves had nonzero grads"
 
 
 def test_packed_sky_fetch_bit_identical():
@@ -295,48 +208,6 @@ def test_sky_texture_grads_flag():
     assert float(jnp.abs(g_off.spheres.mat.diffuse.x).max()) > 0.0
 
 
-@pytest.mark.kernel
-def test_cutout_then_sky_matches_scan():
-    """A ray that passes through an alpha-cutout texel and then hits the
-    sky exercises the is_alpha/alpha_depth bookkeeping AGAINST the sky
-    slot: the sky's emissive early return must still replace both
-    radiance and the denoiser albedo with the (boosted) texel. Compared
-    kernel-vs-scan on a cutout mesh + textured sky scene."""
-    from raytpu.camera import make_camera
-    from raytpu.config import load_scene
-    from raytpu.core.types import TextureAtlas
-    from raytpu.kernels.trace_scene import supported
-
-    scene, cam, cfg = load_scene("scenes/mesh_sky.toml")
-    # force every texel of the mesh atlas to CUTOUT (alpha < 1e-4): all
-    # mesh hits pass through and continue to the ground/sky
-    atlas = scene.atlas
-    scene = scene.replace(
-        atlas=TextureAtlas(
-            rgb=atlas.rgb, alpha=jnp.zeros_like(atlas.alpha),
-            width=atlas.width, height=atlas.height,
-        )
-    )
-    cfg = cfg.replace(width=12, height=8, spp=3, max_bounces=4,
-                      merge_quads=False)
-    assert supported(scene, cfg)
-    pids = jnp.arange(cfg.n_pixels, dtype=jnp.int32)
-    key = jax.random.PRNGKey(36)
-    a = render(scene, cam, cfg, pids, key)
-    b = render(
-        scene, cam, cfg.replace(use_megakernel=True, pallas_interpret=True),
-        pids, key,
-    )
-    for name in ("radiance", "albedo", "normal"):
-        x = np.asarray(getattr(a, name).to_array())
-        y = np.asarray(getattr(b, name).to_array())
-        bad = (np.abs(x - y) > 1e-4 + 1e-5 * np.abs(x)).any(axis=-1)
-        assert bad.mean() <= 0.02, (
-            f"{name}: {bad.mean():.2%} pixels differ "
-            f"(max {np.abs(x - y).max():.4f})"
-        )
-
-
 def test_ingraph_packed_sky_fresh_never_stale():
     """Training-path packed sky (VERDICT r4 next #3): combine_scene drops
     the load-time packed twin, and compose_sky rebuilds it IN-GRAPH from
@@ -355,7 +226,7 @@ def test_ingraph_packed_sky_fresh_never_stale():
 
     from raytpu.core.gather import pack_rgba_u8_traced
     from raytpu.io.obj import pack_rgba_u8
-    from raytpu.kernels.trace_spheres import compose_sky
+    from raytpu.materials.texture import compose_sky
 
     rng = np.random.default_rng(11)
     h, w = 8, 16

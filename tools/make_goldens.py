@@ -4,8 +4,8 @@ The reference's de-facto test suite is 33 golden renders
 (/root/reference/results/); ours is a checked-in set of small CPU
 renders of the five BASELINE configs, diffed in tests with perceptual
 tolerance (tests/test_golden_images.py). Goldens are rendered on CPU
-because CI runs on CPU; TPU renders differ only by XLA FMA contraction
-(ulp-level sample flips), which the test tolerance absorbs.
+because CI runs on CPU; GPU renders differ only by compiler FMA
+contraction (ulp-level sample flips), which the test tolerance absorbs.
 
 Regenerate (only when an INTENDED behavior change lands):
     JAX_PLATFORMS=cpu python tools/make_goldens.py

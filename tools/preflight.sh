@@ -1,41 +1,16 @@
 #!/bin/sh
-# Pre-snapshot gate (VERDICT r3 weak #3: two rounds running, the
-# official record misrepresented the repo because nothing forced the
-# kernel tier + bench to run before a snapshot). Run this before ANY
-# snapshot/release; every step must pass.
+# Release gate: the tier-1 tests on the CPU, then the chip smoke test.
 #
-#   sh tools/preflight.sh            # full gate (~25 min: the kernel
-#                                    # tier interprets Pallas on CPU)
-#   sh tools/preflight.sh --fast     # skip the kernel tier (core +
-#                                    # bench + deep-bounce only)
+#   sh tools/preflight.sh
 #
-# Steps:
-#   1. core test tier         (pytest -q: unit/grad/sharding/io)
-#   2. kernel test tier       (pytest -m kernel: megakernel-vs-scan)
-#   3. bench smoke            (bench.py --quick: flagship metric, rc 0)
-#   4. deep-bounce fwd+bwd    (tools/deep_bounce_smoke.py: 19-20 bounce
-#                              grads through both megakernels, on-chip
-#                              when a TPU is present — ADVICE #3)
+# Step 2 needs a GPU: chip_smoke.py exits non-zero without one.
 set -e
 cd "$(dirname "$0")/.."
 
-echo "== preflight 1/5: core test tier =="
-python -m pytest tests/ -q
+echo "== preflight 1/2: tier-1 tests (CPU, kernels in interpret mode) =="
+JAX_PLATFORMS=cpu python -m pytest tests/ -q -m 'not slow' -p xdist -n 6 --dist loadfile
 
-if [ "$1" != "--fast" ]; then
-  echo "== preflight 2/5: kernel test tier =="
-  python -m pytest tests/ -q -m kernel -o addopts="-n 2"
-else
-  echo "== preflight 2/5: kernel tier SKIPPED (--fast) =="
-fi
-
-echo "== preflight 3/5: bench smoke =="
-python bench.py --quick
-
-echo "== preflight 4/5: deep-bounce fwd+bwd smoke =="
-python tools/deep_bounce_smoke.py
-
-echo "== preflight 5/5: shard_map megakernel smoke =="
-python tools/shardmap_smoke.py
+echo "== preflight 2/2: chip smoke test (GPU) =="
+python chip_smoke.py
 
 echo "preflight PASSED"

@@ -5,7 +5,7 @@ seeds — the same self-supervision OIDN's training used (noisy in, less
 noisy target), generated by our own renderer so the noise distribution
 matches exactly what the filter will see.
 
-Run on the TPU (renders the pairs there too):
+Run on the GPU (renders the pairs there too):
     python tools/train_denoiser.py [--steps 1500] [--out raytpu/denoise/weights/kpcn.npz]
 """
 
@@ -50,7 +50,7 @@ def build_dataset(width=256, height=192, spp_lo=(4, 8, 16), spp_hi=512,
         for seed, lo_spp in enumerate(spp_lo):
             cfg = RenderConfig(
                 width=width, height=height, spp=lo_spp, max_bounces=5,
-                use_megakernel=True, pixel_tile=width * height,
+                pixel_tile=width * height,
             )
             key = jax.random.PRNGKey(100 + seed)
             t0 = time.time()
@@ -78,19 +78,18 @@ def main():
 
     import optax
 
-    from raytpu.denoise.learned import KPCN, WEIGHTS_PATH, init_params, save_params
+    from raytpu.denoise.learned import WEIGHTS_PATH, init_params, kpcn, save_params
 
     lo, hi, alb, nrm = build_dataset()
     n_img, H, W, _ = lo.shape
     print(f"dataset: {n_img} frames {W}x{H}")
 
-    model = KPCN()
     params = init_params(jax.random.PRNGKey(7))
     tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(args.lr))
     opt_state = tx.init(params)
 
     apply_b = jax.vmap(
-        lambda p, c, a, n: model.apply(p, c, a, n), in_axes=(None, 0, 0, 0)
+        kpcn, in_axes=(None, 0, 0, 0)
     )
 
     @jax.jit
